@@ -1,0 +1,84 @@
+"""Device operators for the query engine, in PyTorch.
+
+Counterpart of `parseable_tpu/ops/kernels.py`: `lut_mask` (:38) and
+`fused_groupby_block` (:108), with the same signatures and output shapes.
+Group-by is dense: group keys arrive pre-combined into one int32 id in
+[0, num_groups), filters arrive as masks, and every reduction weights by the
+mask instead of compacting rows.
+
+`fused_groupby_block` runs one block's whole partial aggregate through the
+hand kernels of `ops/groupby_cuda.py`: the additive rows (row count,
+per-aggregate counts, sums) through kernel A, min/max through kernel B. On
+CPU tensors the same calls compute the kernels' plain versions.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from parseable_tpu_torch.ops.groupby_cuda import F32_MAX, additive_groupby, minmax_groupby
+
+__all__ = ["F32_MAX", "fused_groupby_block", "lut_mask"]
+
+
+def lut_mask(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
+    """String predicate as a dictionary-LUT gather: lut[codes].
+
+    The LUT is the predicate evaluated on the host over the dictionary
+    values (plus a trailing False for the null slot). Codes ship in the
+    narrowest integer type (int8/int16/int32); torch indexes only with
+    int32/int64, so narrow codes widen here."""
+    if codes.dtype != torch.int32:
+        codes = codes.to(torch.int32)
+    return lut[codes]
+
+
+def fused_groupby_block(
+    group_ids: torch.Tensor,  # int32 [N] in [0, num_groups)
+    mask: torch.Tensor,  # bool [N]
+    sum_values: torch.Tensor,  # float32 [n_sum, N]
+    min_values: torch.Tensor,  # float32 [n_min, N]
+    max_values: torch.Tensor,  # float32 [n_max, N]
+    valid: torch.Tensor,  # bool [n_all, N] per-agg-input validity
+    num_groups: int,
+    n_sum: int,
+    n_min: int,
+    n_max: int,
+):
+    """One block's complete partial aggregate.
+
+    Returns (count[G], per_agg_count[n_all, G], sums[n_sum, G],
+    mins[n_min, G], maxs[n_max, G]). Validity rows are ordered
+    [sum inputs | min inputs | max inputs | count-only inputs].
+
+    Precision: counts accumulate in f32 and are exact below 2^24 per block;
+    sums are f32 adds (no TF32, no bf16). A masked-off row contributes
+    +-3.4e38 to min/max; a group no row reaches gives +-inf, as JAX's
+    segment_min/segment_max identities do.
+    """
+    if group_ids.dtype != torch.int32:
+        group_ids = group_ids.to(torch.int32)
+    n_all = valid.shape[0]
+    vmask = valid & mask[None, :]
+    rows = torch.cat(
+        [
+            mask[None, :].to(torch.float32),
+            vmask.to(torch.float32),
+            torch.where(vmask[:n_sum], sum_values, 0.0),
+        ],
+        dim=0,
+    )
+    adds = additive_groupby(group_ids, rows, num_groups)
+    count, per_agg_count, sums = adds[0], adds[1 : 1 + n_all], adds[1 + n_all :]
+    if n_min + n_max:
+        mins, maxs = minmax_groupby(
+            group_ids,
+            torch.cat([min_values, max_values], dim=0).contiguous(),
+            valid[n_sum : n_sum + n_min + n_max].contiguous(),
+            mask.contiguous(),
+            num_groups,
+            n_min,
+        )
+    else:
+        mins = maxs = torch.zeros((0, num_groups), dtype=torch.float32, device=mask.device)
+    return count, per_agg_count, sums, mins, maxs

@@ -1,0 +1,169 @@
+"""Stream scan: the lake's Parquet files for one query.
+
+Counterpart of `parseable_tpu/query/provider.py` (`StreamScan`, :487),
+trimmed to the query slice: snapshot -> manifests overlapping the time range
+-> per-file time and column-stats pruning (`prune_file`) -> Parquet read
+from the object store. Tables yield unfiltered, stamped with a source id;
+the engines apply the row-level time filter themselves. Staging data, the
+hot tier, device-resident stubs and the shared scan scheduler are later
+slices; a small in-order read-ahead overlaps Parquet decode with the engine.
+"""
+
+from __future__ import annotations
+
+import io
+import logging
+import threading
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
+from datetime import UTC, datetime
+from typing import Iterator
+
+import pyarrow as pa
+import pyarrow.parquet as pq
+
+from parseable_tpu_torch import DEFAULT_TIMESTAMP_KEY
+from parseable_tpu_torch.catalog import ManifestFile, Snapshot
+from parseable_tpu_torch.core import Parseable
+from parseable_tpu_torch.query.planner import LogicalPlan, prune_file
+
+logger = logging.getLogger(__name__)
+
+# parquet files decoded ahead of the engine
+READ_AHEAD = 2
+
+
+@dataclass
+class ScanStats:
+    files_total: int = 0
+    files_pruned: int = 0
+    bytes_scanned: int = 0
+    rows_scanned: int = 0
+    # files dropped from the result set by read/decode failures — nonzero
+    # means the response is PARTIAL
+    scan_errors: int = 0
+
+
+class StreamScan:
+    """Materialize a stream's Parquet sources for one query."""
+
+    def __init__(self, parseable: Parseable, plan: LogicalPlan):
+        self.p = parseable
+        self.plan = plan
+        self._manifest_files: list[ManifestFile] | None = None
+        # read-ahead workers update the stats beside the consumer thread
+        self.stats = ScanStats()  # guarded-by: self._stats_lock
+        self._stats_lock = threading.Lock()
+
+    def merged_snapshot(self) -> Snapshot:
+        """Union of all nodes' snapshots for this stream."""
+        merged = Snapshot()
+        for fmt in self.p.metastore.get_all_stream_jsons(self.plan.stream):
+            merged.manifest_list.extend(fmt.snapshot.manifest_list)
+        return merged
+
+    def _columns_for_read(self, available: list[str]) -> list[str] | None:
+        needed = self.plan.needed_columns
+        if needed is None:
+            return None
+        cols = [c for c in available if c in needed]
+        # carry the timestamp column for time filtering — unless the plan
+        # dropped it (no bounds, no expression touches it)
+        tb = self.plan.time_bounds
+        wants_ts = (
+            DEFAULT_TIMESTAMP_KEY in needed or tb.low is not None or tb.high is not None
+        )
+        if wants_ts and DEFAULT_TIMESTAMP_KEY in available and DEFAULT_TIMESTAMP_KEY not in cols:
+            cols.append(DEFAULT_TIMESTAMP_KEY)
+        return cols
+
+    def manifest_files(self) -> list[ManifestFile]:
+        """Manifest entries after time + stats pruning, memoized for the
+        scan's lifetime."""
+        if self._manifest_files is None:
+            self._manifest_files = self._manifest_files_uncached()
+        return self._manifest_files
+
+    def _manifest_files_uncached(self) -> list[ManifestFile]:
+        snapshot = self.merged_snapshot()
+        items = snapshot.manifests_for_range(self.plan.time_bounds.low, self.plan.time_bounds.high)
+        files: list[ManifestFile] = []
+        seen: set[str] = set()
+        for item in items:
+            prefix = item.manifest_path[: -len("/manifest.json")]
+            manifest = self.p.metastore.get_manifest(prefix)
+            if manifest is None:
+                continue
+            for f in manifest.files:
+                if f.file_path in seen:
+                    continue
+                seen.add(f.file_path)
+                self.stats.files_total += 1
+                if not self._file_overlaps_time(f) or not prune_file(f, self.plan.constraints):
+                    self.stats.files_pruned += 1
+                    continue
+                files.append(f)
+        return files
+
+    def _file_overlaps_time(self, f: ManifestFile) -> bool:
+        tb = self.plan.time_bounds
+        if tb.low is None and tb.high is None:
+            return True
+        for col in f.columns:
+            if col.name == DEFAULT_TIMESTAMP_KEY and col.stats is not None:
+                lo = datetime.fromtimestamp(col.stats.min / 1000, UTC)
+                hi = datetime.fromtimestamp(col.stats.max / 1000, UTC)
+                if tb.low is not None and hi < tb.low:
+                    return False
+                if tb.high is not None and lo >= tb.high:
+                    return False
+        return True
+
+    def _read_parquet(self, f: ManifestFile) -> pa.Table | None:
+        """Read a manifest entry with one whole-object GET. Errors drop the
+        file from the results but are COUNTED in stats.scan_errors, so a
+        partial response is detectable, not silent."""
+        try:
+            data = self.p.storage.get_object(f.file_path)
+            with pq.ParquetFile(io.BytesIO(data)) as pf:
+                cols = self._columns_for_read(pf.schema_arrow.names)
+                table = pf.read(columns=cols)
+        except Exception:
+            logger.exception("failed reading parquet %s", f.file_path)
+            with self._stats_lock:
+                self.stats.scan_errors += 1
+            return None
+        with self._stats_lock:
+            self.stats.bytes_scanned += len(data)
+            self.stats.rows_scanned += table.num_rows
+        return table
+
+    @staticmethod
+    def _stamp(table: pa.Table, source_id: bytes) -> pa.Table:
+        meta = dict(table.schema.metadata or {})
+        meta[b"ptpu_source_id"] = source_id
+        return table.replace_schema_metadata(meta)
+
+    def tables(self) -> Iterator[pa.Table]:
+        """Every pruned source, in manifest order, decoded READ_AHEAD files
+        ahead of the consumer. Each table carries a source id (path, size,
+        rows), so a rewritten object at the same path is a new source."""
+        files = self.manifest_files()
+        with ThreadPoolExecutor(max_workers=READ_AHEAD, thread_name_prefix="scan") as pool:
+            pending: deque = deque()
+            try:
+                for f in files:
+                    pending.append((f, pool.submit(self._read_parquet, f)))
+                    if len(pending) > READ_AHEAD:
+                        yield from self._emit(*pending.popleft())
+                while pending:
+                    yield from self._emit(*pending.popleft())
+            finally:
+                for _, fut in pending:
+                    fut.cancel()
+
+    def _emit(self, f: ManifestFile, fut) -> Iterator[pa.Table]:
+        t = fut.result()
+        if t is not None and t.num_rows:
+            yield self._stamp(t, f"{f.file_path}|{f.file_size}|{f.num_rows}".encode())

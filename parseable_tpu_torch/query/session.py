@@ -1,0 +1,199 @@
+"""Query session: SQL text -> plan -> scan -> engine -> result table.
+
+Counterpart of `parseable_tpu/query/session.py` (`QuerySession`, :285),
+trimmed to single-stream SELECTs. Engines:
+
+- "gpu" (the default, `Options.query_engine`): `GpuQueryExecutor` on
+  `device` (default `cuda`). There is no probe-and-fall-back: a GPU query
+  on a machine without a working card raises `DeviceUnavailable`.
+  `device="cpu"` runs the same executor with the kernels' plain versions,
+  which is how the tests drive it.
+- "cpu": the pyarrow `QueryExecutor`.
+
+EXPLAIN, CTEs, UNION, joins and subqueries are later slices and raise
+QueryError.
+"""
+
+from __future__ import annotations
+
+import time as _time
+from dataclasses import dataclass, field
+from datetime import UTC, datetime
+from typing import Any
+
+import pyarrow as pa
+import torch
+
+from parseable_tpu_torch import DEFAULT_TIMESTAMP_KEY
+from parseable_tpu_torch.core import Parseable
+from parseable_tpu_torch.query import sql as S
+from parseable_tpu_torch.query.executor import QueryExecutor
+from parseable_tpu_torch.query.planner import LogicalPlan, TimeBounds, plan as build_plan
+from parseable_tpu_torch.query.provider import StreamScan
+from parseable_tpu_torch.utils.timeutil import TimeRange
+
+ENGINES = ("gpu", "cpu")
+
+
+class QueryError(ValueError):
+    pass
+
+
+@dataclass
+class QueryResult:
+    table: pa.Table
+    fields: list[str]
+    stats: dict[str, Any] = field(default_factory=dict)
+
+
+class _TimedIter:
+    """Wraps a scan iterator, accumulating the wall time spent producing
+    blocks — the scan share of the stage breakdown (the executor pulls
+    lazily, so scan and execute interleave; time inside next() is Parquet
+    read/decode not hidden by the read-ahead, the remainder is engine
+    work)."""
+
+    def __init__(self, it):
+        self._it = iter(it)
+        self.seconds = 0.0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        t0 = _time.perf_counter()
+        try:
+            return next(self._it)
+        finally:
+            self.seconds += _time.perf_counter() - t0
+
+
+class QuerySession:
+    """One engine-backed session over a Parseable instance."""
+
+    def __init__(
+        self,
+        parseable: Parseable,
+        engine: str | None = None,
+        device: torch.device | str | None = None,
+    ):
+        self.p = parseable
+        self.engine = engine or parseable.options.query_engine
+        if self.engine not in ENGINES:
+            raise QueryError(f"unknown engine {self.engine!r}; expected one of {ENGINES}")
+        self.device = device
+
+    def resolve_stream(self, name: str) -> None:
+        """Make sure the stream exists locally, loading it from storage when
+        this process sees it for the first time."""
+        if self.p.streams.get(name) is None:
+            self.p.load_streams_from_storage()
+        if self.p.streams.get(name) is None:
+            raise QueryError(f"stream {name!r} does not exist")
+
+    def query(
+        self,
+        sql_text: str,
+        start_time: str | None = None,
+        end_time: str | None = None,
+    ) -> QueryResult:
+        """Run SQL over the stream it names, bounded by the API time range
+        [start_time, end_time) when both are given."""
+        t0 = _time.monotonic()
+        select = S.parse_sql(sql_text)
+        if select.explain or select.ctes or select.set_ops or select.joins or any(
+            S.contains_subquery(x)
+            for x in [select.where, select.having, *(i.expr for i in select.items)]
+        ):
+            raise QueryError("EXPLAIN, CTEs, UNION, joins and subqueries are not ported yet")
+        lp = self._plan(select, start_time, end_time, t0)
+        scan = StreamScan(self.p, lp)
+        table, stats = self._execute(lp, scan)
+        elapsed = _time.monotonic() - t0
+        stats.update(
+            {
+                "elapsed_secs": round(elapsed, 6),
+                "engine": self.engine,
+                "files_total": scan.stats.files_total,
+                "files_pruned": scan.stats.files_pruned,
+                "bytes_scanned": scan.stats.bytes_scanned,
+                "rows_scanned": scan.stats.rows_scanned,
+                # nonzero = files dropped by read failures (partial result)
+                "scan_errors": scan.stats.scan_errors,
+            }
+        )
+        return QueryResult(table, table.column_names, stats)
+
+    def _plan(
+        self,
+        select: S.Select,
+        start_time: str | None,
+        end_time: str | None,
+        t0: float,
+    ) -> LogicalPlan:
+        lp = build_plan(select)
+        self.resolve_stream(lp.stream)
+        stream = self.p.streams.get(lp.stream)
+        if stream is not None and stream.metadata.schema:
+            lp.schema_hint = pa.schema(list(stream.metadata.schema.values()))
+        if start_time and end_time:
+            tr = TimeRange.parse_human_time(start_time, end_time)
+            lp.time_bounds = lp.time_bounds.intersect(TimeBounds(low=tr.start, high=tr.end))
+        timeout = self.p.options.query_timeout_secs
+        if timeout:
+            lp.deadline = t0 + timeout
+        lp.memory_limit_bytes = self.p.options.query_memory_limit_bytes
+        return lp
+
+    def _execute(self, lp: LogicalPlan, scan: StreamScan) -> tuple[pa.Table, dict]:
+        if self.engine == "gpu":
+            from parseable_tpu_torch.query.executor_cuda import GpuQueryExecutor
+
+            if (
+                lp.ts_artificial
+                and lp.time_bounds.low is None
+                and lp.time_bounds.high is None
+                and lp.needed_columns is not None
+            ):
+                # no bounds and no expression touches the timestamp: skip
+                # encoding and shipping it
+                lp.needed_columns.discard(DEFAULT_TIMESTAMP_KEY)
+            self._set_scan_time_hint(lp, scan)
+            executor: QueryExecutor = GpuQueryExecutor(lp, self.p.options, device=self.device)
+        else:
+            executor = QueryExecutor(lp)
+        timer = _TimedIter(scan.tables())
+        t0 = _time.perf_counter()
+        table = executor.execute(timer)
+        exec_ms = (_time.perf_counter() - t0) * 1000
+        stages = {
+            "scan_ms": round(timer.seconds * 1000, 3),
+            "execute_ms": round(max(exec_ms - timer.seconds * 1000, 0.0), 3),
+        }
+        stats: dict = {"stages": stages}
+        routes = getattr(executor, "route_stats", None)
+        if routes is not None:
+            stats["device_routes"] = dict(routes)
+            stages.update({f"{k}_ms": round(v, 3) for k, v in executor.stage_ms.items()})
+        return table, stats
+
+    @staticmethod
+    def _set_scan_time_hint(lp: LogicalPlan, scan: StreamScan) -> None:
+        """Overall scan time range from per-file p_timestamp stats — lets the
+        GPU engine pre-size time-bin group capacities exactly."""
+        lo_ms = hi_ms = None
+        for f in scan.manifest_files():
+            for col in f.columns:
+                if col.name == DEFAULT_TIMESTAMP_KEY and col.stats is not None:
+                    lo_ms = col.stats.min if lo_ms is None else min(lo_ms, col.stats.min)
+                    hi_ms = col.stats.max if hi_ms is None else max(hi_ms, col.stats.max)
+        if lo_ms is None:
+            return
+        lo = datetime.fromtimestamp(lo_ms / 1000, UTC)
+        hi = datetime.fromtimestamp(hi_ms / 1000, UTC)
+        if lp.time_bounds.low is not None:
+            lo = max(lo, lp.time_bounds.low)
+        if lp.time_bounds.high is not None:
+            hi = min(hi, lp.time_bounds.high)
+        if lo <= hi:
+            lp.scan_time_hint = (lo, hi)

@@ -1,0 +1,270 @@
+"""The port's GPU executor against the JAX package's engines, on the CPU.
+
+The same pyarrow tables go through
+- `parseable_tpu_torch` `GpuQueryExecutor(device="cpu")` — the port's dense
+  device path, with its kernels' plain versions on CPU tensors;
+- the JAX `TpuQueryExecutor` on CPU JAX;
+- the JAX CPU `QueryExecutor`;
+- the port's CPU `QueryExecutor` (its oracle engine).
+
+Tolerances follow tests/test_engine_fuzz.py's model, chosen per column by
+its alias prefix:
+- `c*` counts: exact (f32 adds of 0/1, exact below 2^24);
+- `a*` sums and averages: rel 2e-4, abs 1e-6 (f32 per-block sums against
+  f64 and against another f32 summation order);
+- `m*` min/max: exact against the JAX TPU engine (both pick the same f32
+  value), rel 2e-4 against the f64 CPU engines (f32 rounding of the value).
+Row identity sorts on group keys only (`g*`), never on floats.
+"""
+
+import random
+from datetime import datetime, timedelta
+
+import numpy as np
+import pyarrow as pa
+import pytest
+
+from parseable_tpu.config import Options as JaxOptions
+from parseable_tpu.query.executor import QueryExecutor as JaxCpuExecutor
+from parseable_tpu.query.executor_tpu import TpuQueryExecutor
+from parseable_tpu.query.planner import plan as jax_plan
+from parseable_tpu.query.sql import parse_sql as jax_parse
+from parseable_tpu_torch.query import executor_cuda as X
+from parseable_tpu_torch.query.executor import QueryExecutor as PortCpuExecutor
+from parseable_tpu_torch.query.planner import plan as port_plan
+from parseable_tpu_torch.query.sql import parse_sql as port_parse
+
+BASE = datetime(2024, 5, 1, 10, 0)
+TOL = dict(rel=2e-4, abs=1e-6)
+HOST_CARDS = (2, 5, 40)  # per table: the group dictionary grows across blocks
+
+
+def make_table(seed: int, n: int, n_hosts: int) -> pa.Table:
+    rng = np.random.default_rng(seed)
+    ms = rng.integers(0, 2 * 3600 * 1000, n)  # two hours, ms resolution
+    lat = rng.random(n) * 100
+    null = rng.random(n) < 0.1
+    return pa.table(
+        {
+            "p_timestamp": pa.array(
+                [BASE + timedelta(milliseconds=int(v)) for v in ms], pa.timestamp("ms")
+            ),
+            "host": pa.array(rng.choice([f"h{i}" for i in range(n_hosts)], n).tolist()),
+            "path": pa.array(rng.choice([f"/p{i}" for i in range(12)], n).tolist()),
+            "message": pa.array(
+                rng.choice(["ok", "error: timeout", "slow", "error: denied"], n).tolist()
+            ),
+            "status": pa.array(rng.choice([200.0, 301.0, 404.0, 500.0], n)),
+            "bytes": pa.array(rng.integers(100, 50_000, n).astype(np.float64)),
+            "lat": pa.array([None if z else float(v) for z, v in zip(null, lat)]),
+        }
+    )
+
+
+@pytest.fixture(scope="module")
+def tables() -> list[pa.Table]:
+    return [make_table(40 + i, 3000, card) for i, card in enumerate(HOST_CARDS)]
+
+
+def port_gpu(sql: str, tables) -> tuple[list[dict], dict]:
+    """The port's GPU path; each table carries a source id, as scanned
+    Parquet does, so each stays a device block of its own."""
+    blocks = [
+        t.replace_schema_metadata({X.SOURCE_ID_META: f"t{i}".encode()})
+        for i, t in enumerate(tables)
+    ]
+    ex = X.GpuQueryExecutor(port_plan(port_parse(sql)), device="cpu")
+    return ex.execute(iter(blocks)).to_pylist(), ex.route_stats
+
+
+def jax_tpu(sql: str, tables) -> list[dict]:
+    opts = JaxOptions()
+    opts.mesh_shape = "off"
+    return TpuQueryExecutor(jax_plan(jax_parse(sql)), opts).execute(iter(tables)).to_pylist()
+
+
+def jax_cpu(sql: str, tables) -> list[dict]:
+    return JaxCpuExecutor(jax_plan(jax_parse(sql))).execute(iter(tables)).to_pylist()
+
+
+def port_cpu(sql: str, tables) -> list[dict]:
+    return PortCpuExecutor(port_plan(port_parse(sql))).execute(iter(tables)).to_pylist()
+
+
+def assert_rows(ref: list[dict], got: list[dict], sql: str, exact_minmax: bool, ordered=False):
+    def key(r):
+        return tuple(str(r[k]) for k in sorted(r) if k.startswith("g"))
+
+    if not ordered:
+        ref, got = sorted(ref, key=key), sorted(got, key=key)
+    assert len(ref) == len(got), (sql, len(ref), len(got))
+    for rr, rg in zip(ref, got):
+        assert set(rr) == set(rg), sql
+        for k, a in rr.items():
+            b = rg[k]
+            if k.startswith("m") and exact_minmax:
+                assert a == b, (sql, k, a, b)
+            elif isinstance(a, float) and isinstance(b, float):
+                assert b == pytest.approx(a, **TOL), (sql, k, a, b)
+            else:
+                assert a == b, (sql, k, a, b)
+
+
+CASES = {
+    # BASELINE config 2: time-bucketed GROUP BY
+    "config2": (
+        "SELECT date_bin(interval '1 minute', p_timestamp) AS g0, status AS g1, "
+        "count(*) AS c0, sum(bytes) AS a0, avg(lat) AS a1 FROM t GROUP BY g0, g1"
+    ),
+    # BASELINE config 3: LIKE over the dictionary
+    "config3": (
+        "SELECT status AS g0, count(*) AS c0, avg(lat) AS a0 FROM t "
+        "WHERE message LIKE '%error%' GROUP BY g0"
+    ),
+    # BASELINE config 4: multi-column group, ORDER BY/LIMIT on the host
+    "config4": (
+        "SELECT path AS g0, host AS g1, count(*) AS c0, sum(bytes) AS a0 FROM t "
+        "GROUP BY g0, g1 ORDER BY a0 DESC LIMIT 10"
+    ),
+    "minmax": (
+        "SELECT host AS g0, min(lat) AS m0, max(bytes) AS m1, count(lat) AS c0 FROM t "
+        "WHERE status >= 400 AND p_timestamp >= '2024-05-01T10:30:00Z' GROUP BY g0"
+    ),
+    "str-eq": "SELECT path AS g0, count(*) AS c0 FROM t WHERE host = 'h1' GROUP BY g0",
+    "str-ne": "SELECT path AS g0, count(*) AS c0 FROM t WHERE host != 'h0' GROUP BY g0",
+    "str-in": (
+        "SELECT host AS g0, sum(lat) AS a0 FROM t WHERE host IN ('h0', 'h3', 'h9') GROUP BY g0"
+    ),
+    "str-not-like": (
+        "SELECT status AS g0, count(*) AS c0 FROM t WHERE message NOT LIKE 'error%' GROUP BY g0"
+    ),
+    "num-cmp": (
+        "SELECT status AS g0, count(*) AS c0, max(lat) AS m0 FROM t "
+        "WHERE lat < 33.3 AND status != 301 GROUP BY g0"
+    ),
+    "num-in": "SELECT path AS g0, count(*) AS c0 FROM t WHERE status IN (200, 404) GROUP BY g0",
+    "null-and-not": (
+        "SELECT host AS g0, count(*) AS c0 FROM t WHERE lat IS NOT NULL "
+        "AND NOT (path = '/p1') GROUP BY g0"
+    ),
+    "subsecond-bounds": (
+        "SELECT host AS g0, count(*) AS c0, sum(bytes) AS a0 FROM t "
+        "WHERE p_timestamp > '2024-05-01T10:30:00.250Z' "
+        "AND p_timestamp <= '2024-05-01T11:15:30.500Z' GROUP BY g0"
+    ),
+    "time-eq": "SELECT count(*) AS c0 FROM t WHERE p_timestamp >= '2024-05-01T11:00:00.001Z'",
+    # bins start mid-day, so the block's bin offset is negative (floor division)
+    "date-bin-10m": (
+        "SELECT date_bin(interval '10 minutes', p_timestamp) AS g0, count(*) AS c0, "
+        "min(lat) AS m0 FROM t GROUP BY g0"
+    ),
+    # a 7-day bin is not day-aligned: the origin shift is nonzero
+    "date-bin-7d": (
+        "SELECT date_bin(interval '7 days', p_timestamp) AS g0, host AS g1, count(*) AS c0 "
+        "FROM t GROUP BY g0, g1"
+    ),
+    "date-trunc": (
+        "SELECT date_trunc('minute', p_timestamp) AS g0, count(*) AS c0 FROM t "
+        "WHERE path LIKE '/p1%' GROUP BY g0 HAVING count(*) > 2"
+    ),
+    "no-group": "SELECT count(*) AS c0, sum(bytes) AS a0, min(bytes) AS m0 FROM t",
+    "empty-match": "SELECT host AS g0, count(*) AS c0 FROM t WHERE host = 'nope' GROUP BY g0",
+}
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_executor_matches_jax_engines(name, tables):
+    sql = CASES[name]
+    got, routes = port_gpu(sql, tables)
+    assert routes["cpu_fallback"] == 0, routes
+    assert routes["device_cold"] == len(tables)
+    ordered = "ORDER BY" in sql
+    assert_rows(jax_tpu(sql, tables), got, sql, exact_minmax=True, ordered=ordered)
+    assert_rows(jax_cpu(sql, tables), got, sql, exact_minmax=False, ordered=ordered)
+    assert_rows(jax_cpu(sql, tables), port_cpu(sql, tables), sql, False, ordered=ordered)
+
+
+@pytest.mark.parametrize(
+    "sql",
+    [
+        "SELECT host AS g0, stddev(lat) AS a0 FROM t GROUP BY g0",
+        "SELECT host AS g0, count(distinct path) AS c0 FROM t GROUP BY g0",
+        "SELECT host AS g0, sum(lat * 2) AS a0 FROM t GROUP BY g0",
+        "SELECT host AS g0, path AS g1 FROM t WHERE status >= 400 ORDER BY g0, g1 LIMIT 5",
+    ],
+    ids=["stddev", "distinct", "agg-over-expr", "select"],
+)
+def test_outside_the_slice_takes_the_cpu_engine(sql, tables):
+    got, routes = port_gpu(sql, tables)
+    assert routes["cpu_fallback"] == 1 and routes["device_cold"] == 0, routes
+    assert_rows(jax_cpu(sql, tables), got, sql, exact_minmax=False, ordered="LIMIT" in sql)
+
+
+def test_group_space_beyond_the_dense_budget(monkeypatch, tables):
+    """Once the group space outgrows DENSE_G_MAX the rest of the scan folds
+    on the host; device partials and host partials merge exactly."""
+    monkeypatch.setattr(X, "DENSE_G_MAX", 64)
+    sql = "SELECT host AS g0, path AS g1, count(*) AS c0, max(lat) AS m0 FROM t GROUP BY g0, g1"
+    got, routes = port_gpu(sql, tables)
+    assert routes["device_cold"] >= 1 and routes["cpu_fallback"] >= 1, routes
+    assert_rows(jax_cpu(sql, tables), got, sql, exact_minmax=False)
+
+
+# ------------------------------------------------- bounded differential fuzz
+
+
+AGGS = [
+    ("c", "count(*)"), ("c", "count(lat)"), ("a", "sum(lat)"), ("a", "avg(lat)"),
+    ("m", "min(lat)"), ("m", "max(lat)"), ("a", "sum(status)"), ("m", "max(bytes)"),
+]
+GROUPS = [
+    "host", "path", "status", "date_bin(interval '10m', p_timestamp)",
+    "date_trunc('minute', p_timestamp)",
+]
+FILTERS = [
+    "status >= 400", "status = 200", "lat > 50", "lat IS NOT NULL",
+    "host != 'h0'", "host IN ('h0', 'h1')", "path LIKE '/p1%'",
+    "status >= 300 AND lat < 80", "status = 500 OR status = 404",
+    "p_timestamp >= '2024-05-01T10:30:00Z'",
+    "p_timestamp > '2024-05-01T10:30:00.250Z'",
+    "p_timestamp <= '2024-05-01T10:45:30.500Z'",
+    "NOT (host = 'h1')", "message LIKE '%error%'",
+]
+HAVINGS = ["count(*) > 2", "count(*) >= 10", "count(lat) > 3"]
+FUZZ_TRIALS = 40
+
+
+def gen_query(rng: random.Random) -> tuple[str, bool]:
+    """A query and whether the device path must decline it: a numeric
+    aggregate over a GROUP BY column (that column encodes as dictionary
+    codes), which the JAX engine declines the same way."""
+    picks = rng.sample(AGGS, rng.randint(1, 3))
+    aggs = [f"{expr} {kind}{i}" for i, (kind, expr) in enumerate(picks)]
+    groups = rng.sample(GROUPS, rng.randint(0, 2))
+    sql = "SELECT " + ", ".join([f"{g} g{i}" for i, g in enumerate(groups)] + aggs) + " FROM t"
+    if rng.random() < 0.7:
+        sql += f" WHERE {rng.choice(FILTERS)}"
+    if groups:
+        sql += " GROUP BY " + ", ".join(f"g{i}" for i in range(len(groups)))
+        if rng.random() < 0.3:
+            sql += f" HAVING {rng.choice(HAVINGS)}"
+    declined = any(
+        f"{fn}({g})" in sql for g in groups for fn in ("sum", "avg", "min", "max")
+    )
+    return sql, declined
+
+
+def test_differential_fuzz():
+    """Port GPU path vs JAX CPU engine vs port CPU engine, seed-pinned."""
+    rng = random.Random(1234)
+    for trial in range(FUZZ_TRIALS):
+        tables = [
+            make_table(rng.randrange(1 << 30), rng.choice([500, 2000]), rng.choice([2, 5, 40]))
+            for _ in range(rng.randint(1, 3))
+        ]
+        sql, declined = gen_query(rng)
+        got, routes = port_gpu(sql, tables)
+        assert (routes["cpu_fallback"] > 0) == declined, (trial, sql, routes)
+        ref = jax_cpu(sql, tables)
+        assert_rows(ref, got, f"[trial {trial}] {sql}", exact_minmax=False)
+        assert_rows(ref, port_cpu(sql, tables), f"[trial {trial}] {sql}", exact_minmax=False)
