@@ -4,12 +4,21 @@
     python3 chip_smoke.py [--seed 42]
 
 Builds the hand-written group-by kernels from `parseable_tpu_torch/csrc/`,
-holds each against its plain PyTorch version on the card, writes an access-
-log lake of 2^23 rows (8 one-minute Parquet files of 2^20 rows, the shape of
-`bench.py`'s "default" profile) through the port's own sync path, and
-answers four GROUP BY queries on the port's "gpu" engine and on its "cpu"
-engine, cold and then warm. Any failed check raises, so the script exits
-non-zero; it needs one CUDA card and has no CPU path.
+holds every regime of each against its plain PyTorch version on the card
+(phase 2; with the regimes side by side at the shapes where the rules
+switch), writes an access-log lake of 2^23 rows (8 one-minute Parquet
+files of 2^20 rows, the shape of `bench.py`'s "default" profile) through the
+port's own sync path (phase 3), and answers four GROUP BY queries on the
+port's "gpu" engine and on its "cpu" engine, cold and then warm (phase 4).
+Phase 5 checks and times each kernel on the inputs the main path gave it
+(one block per shape, recorded in phase 4) and on uniform inputs of the
+same shape. Any failed check raises, so the script exits non-zero; it needs
+one CUDA card and has no CPU path.
+
+Kernel times are device times: REPS calls enqueued back to back between two
+CUDA events behind a device spin (`DeviceTimer`), L2-cold (rotating over
+input copies that exceed L2 together) and L2-warm, cross-checked against
+torch.profiler's per-kernel device time.
 
 Output, one line per check, then:
 - the card's name and power limit as nvidia-smi reports them;
@@ -26,7 +35,6 @@ import argparse
 import json
 import math
 import shutil
-import statistics
 import subprocess
 import sys
 import time
@@ -38,8 +46,12 @@ N_BLOCK = 1 << 20  # rows of one minute file, and of one device block
 MINUTES = 8  # 2^23 rows in all
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+TC_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
+L2_BYTES = 50e6  # H100 L2 cache
+REPS = 20  # calls enqueued back to back in one timed window
 REL_TOL = 2e-4  # f32 sums against f64 (tests/test_engine_fuzz.py model)
 ABS_TOL = 1e-6
+F32_MAX = 3.4e38
 
 STREAM = "accesslog"
 QUERIES = {
@@ -89,39 +101,94 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(torch, fn, iters: int = 15, warmup: int = 3) -> float:
-    """Median device time of fn() over `iters` runs, by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
+class DeviceTimer:
+    """Device time per call: REPS calls enqueued back to back between two
+    CUDA events, behind a device spin long enough that the host runs ahead,
+    so host enqueue gaps stay out of the window. Rotating over `copies` sets
+    of inputs that together exceed L2 times the call L2-cold."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        torch.cuda.synchronize()
+        start, end = self._events()
         start.record()
-        fn()
+        torch.cuda._sleep(2_000_000)
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        self.cycles_per_ms = 2_000_000 / start.elapsed_time(end)
+
+    def _events(self):
+        ev = self.torch.cuda.Event
+        return ev(enable_timing=True), ev(enable_timing=True)
+
+    def ms(self, fn, copies: int = 1, warmup: int = 3) -> float:
+        torch = self.torch
+        for k in range(warmup):
+            fn(k % copies)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for k in range(REPS):
+            fn(k % copies)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t) * 1e3  # at least the enqueue time of REPS calls
+        start, end = self._events()
+        torch.cuda._sleep(int((2 * host_ms + 0.1) * self.cycles_per_ms))
+        start.record()
+        for k in range(REPS):
+            fn(k % copies)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / REPS
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+def profiled_ms(torch, fn, names: tuple[str, ...], calls: int = 10):
+    """Device time per call of the kernels whose names hold one of `names`,
+    from torch.profiler over `calls` warm calls; None if it saw none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn(0)
+        torch.cuda.synchronize()
+    us = 0.0
+    for ev in prof.key_averages():
+        if str(getattr(ev, "device_type", "")).endswith("CUDA") and any(n in ev.key for n in names):
+            us += getattr(ev, "self_device_time_total", 0.0)
+    return us / calls / 1e3 if us else None
+
+
+def n_copies(nbytes: float) -> int:
+    """Input sets to rotate over so that together they exceed L2 threefold."""
+    return max(2, min(64, math.ceil(3 * L2_BYTES / nbytes)))
+
+
+def bound_ms(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
     """Least time for the work: bytes over the memory rate or operations over
-    the f32 rate, whichever is larger."""
-    tb, to = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    their peak rate, whichever is larger."""
+    tb, to = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return (max(tb, to) * 1e3, "bytes" if tb >= to else "operations")
+
+
+def timed(timer, fns: dict, copies: int) -> dict:
+    """Each call of `fns` L2-cold (rotating `copies` input sets) and L2-warm
+    (one set)."""
+    res = {}
+    for suffix, n in (("", copies), ("_l2_warm", 1)):
+        for key, fn in fns.items():
+            res[key + suffix] = timer.ms(fn, n)
+    return res
 
 
 # ---------------------------------------------------------------- kernels
 
 
-def kernel_a_case(torch, G, r: int, n: int, g: int, gen) -> dict:
-    """Kernel A vs its plain version and a float64 host sum at [r, n] -> [r, g]."""
-    dev = torch.device("cuda")
+def uniform_a(torch, r: int, n: int, g: int, gen):
+    """Kernel A inputs with uniform ids, with rows as the main path builds
+    them: row mask, 0/1 validity, masked sums."""
     ids = torch.randint(0, g, (n,), generator=gen, dtype=torch.int32)
     mask = torch.rand(n, generator=gen) < 0.9
-    # rows as the main path builds them: row mask, 0/1 validity, masked sums
     n_valid = (r - 1) // 2
     rows = torch.cat(
         [
@@ -130,72 +197,200 @@ def kernel_a_case(torch, G, r: int, n: int, g: int, gen) -> dict:
             torch.rand(r - 1 - n_valid, n, generator=gen) * 50_000 * mask[None],
         ]
     )
-    ref64 = torch.zeros(r, g, dtype=torch.float64).index_add_(1, ids.long(), rows.double())
-    ids_d, rows_d = ids.to(dev), rows.to(dev).contiguous()
-    out = G.additive_groupby(ids_d, rows_d, g)
-    plain = G.additive_groupby_plain(ids_d, rows_d, g)
-    torch.cuda.synchronize()
-    out_h = out.double().cpu()
-    counts = 1 + n_valid
-    check(torch.equal(out_h[:counts], ref64[:counts]), f"kernel A counts not exact at R={r} G={g}")
-    rel = ((out_h - ref64).abs() / ref64.abs().clamp_min(1.0)).max().item()
-    check(rel <= REL_TOL, f"kernel A sums rel err {rel} > {REL_TOL} at R={r} G={g}")
-    err = (out - plain).abs().max().item()
-    check(
-        bool(torch.allclose(out, plain, rtol=REL_TOL, atol=ABS_TOL)),
-        f"kernel A disagrees with its plain version at R={r} G={g}: {err}",
-    )
-    lib_out = torch.zeros(r, g, device=dev)
-    ms = cuda_ms(torch, lambda: G.additive_groupby(ids_d, rows_d, g))
-    plain_ms = cuda_ms(torch, lambda: G.additive_groupby_plain(ids_d, rows_d, g))
-    library_ms = cuda_ms(torch, lambda: lib_out.index_add_(1, ids_d, rows_d))
-    b, by = bound_ms(4 * n * (r + 1) + 4 * r * g, r * n)
-    return {
-        "shape": f"R={r} N={n} G={g}", "regime": "shared" if r * g * 4 <= 200 * 1024 else "global",
-        "max_abs_err": err, "max_rel_err_f64": rel, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": b, "bound_by": by, "library_ms": library_ms,
-    }
+    return ids.cuda(), rows.cuda().contiguous()
 
 
-def kernel_b_case(torch, G, k: int, n_min: int, n: int, g: int, gen) -> dict:
-    """Kernel B vs its plain version at [k, n] -> [k, g], exact."""
-    dev = torch.device("cuda")
-    # a quarter of the groups get no row: their identities (+-inf) must show
+def uniform_b(torch, k: int, n: int, g: int, gen):
+    """Kernel B inputs; a quarter of the groups get no row, so their
+    identities (+-inf) must show."""
     ids = torch.randint(0, max(1, (3 * g) // 4), (n,), generator=gen, dtype=torch.int32)
     mask = torch.rand(n, generator=gen) < 0.9
     vals = torch.randn(k, n, generator=gen) * 1000
     valid = torch.rand(k, n, generator=gen) < 0.8
-    ids_d, vals_d, valid_d, mask_d = (t.to(dev).contiguous() for t in (ids, vals, valid, mask))
-    mn, mx = G.minmax_groupby(ids_d, vals_d, valid_d, mask_d, g, n_min)
-    pmn, pmx = G.minmax_groupby_plain(ids_d, vals_d, valid_d, mask_d, g, n_min)
-    torch.cuda.synchronize()
-    check(torch.equal(mn, pmn) and torch.equal(mx, pmx), f"kernel B not exact at K={k} G={g}")
-    both = torch.cat([mn, mx]), torch.cat([pmn, pmx])
-    finite = torch.isfinite(both[1])
-    err = (both[0][finite] - both[1][finite]).abs().max().item() if finite.any() else 0.0
-    live = valid_d & mask_d[None]
-    idx = ids_d.long()[None].expand(k, n)
-    lo = torch.where(live[:n_min], vals_d[:n_min], 3.4e38)
-    hi = torch.where(live[n_min:], vals_d[n_min:], -3.4e38)
-    lib_mn = torch.full((n_min, g), math.inf, device=dev)
-    lib_mx = torch.full((k - n_min, g), -math.inf, device=dev)
+    return tuple(t.cuda().contiguous() for t in (ids, vals, valid, mask))
 
-    def library():
-        lib_mn.scatter_reduce_(1, idx[:n_min], lo, reduce="amin", include_self=True)
-        lib_mx.scatter_reduce_(1, idx[n_min:], hi, reduce="amax", include_self=True)
 
-    ms = cuda_ms(torch, lambda: G.minmax_groupby(ids_d, vals_d, valid_d, mask_d, g, n_min))
-    plain_ms = cuda_ms(
-        torch, lambda: G.minmax_groupby_plain(ids_d, vals_d, valid_d, mask_d, g, n_min)
+def check_additive(torch, ids, rows, g: int, out, plain, what: str) -> dict:
+    """Kernel A's output against a float64 sum (rows of 0/1 exact, others
+    rel 2e-4, non-finite entries equal) and against its plain version."""
+    r = rows.shape[0]
+    inside = (ids >= 0) & (ids < g)
+    ref64 = torch.zeros((r, g), dtype=torch.float64, device=rows.device)
+    ref64.index_add_(1, ids[inside].long(), rows[:, inside].double())
+    counts = ((rows == 0) | (rows == 1)).all(dim=1)
+    check(torch.equal(out[counts].double(), ref64[counts]), f"kernel A counts not exact: {what}")
+    inf = torch.isinf(ref64)
+    check(
+        torch.equal(torch.isnan(out), torch.isnan(ref64))
+        and torch.equal(out[inf].double(), ref64[inf]),
+        f"kernel A non-finite entries differ: {what}",
     )
-    library_ms = cuda_ms(torch, library)
-    b, by = bound_ms(n * (4 + 5 * k + 1) + 4 * k * g, k * n)
-    return {
-        "shape": f"K={k} n_min={n_min} N={n} G={g}",
-        "regime": "shared" if k * g * 4 <= 200 * 1024 else "global",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-        "library_ms": library_ms,
+    fin = torch.isfinite(ref64)
+    rel = ((out.double() - ref64).abs() / ref64.abs().clamp_min(1.0))[fin].max().item()
+    check(rel <= REL_TOL, f"kernel A sums rel err {rel} > {REL_TOL}: {what}")
+    check(
+        bool(torch.allclose(out, plain, rtol=REL_TOL, atol=ABS_TOL, equal_nan=True)),
+        f"kernel A disagrees with its plain version: {what}",
+    )
+    both = torch.isfinite(out) & torch.isfinite(plain)
+    err = (out - plain)[both].abs().max().item() if both.any() else 0.0
+    return {"max_abs_err": err, "max_rel_err_f64": rel}
+
+
+def kernel_a_case(torch, G, timer, ids, rows, g: int, inputs: str,
+                  regime: str | None = None) -> dict:
+    """Kernel A vs its plain version and a float64 sum, then timed L2-cold
+    and L2-warm beside its plain version and index_add_."""
+    r, n = rows.shape
+    regime = regime or G.additive_regime(r, g)
+    res = {"shape": f"R={r} N={n} G={g}", "inputs": inputs, "regime": regime}
+    res.update(
+        check_additive(torch, ids, rows, g, G.additive_groupby(ids, rows, g, regime=regime),
+                       G.additive_groupby_plain(ids, rows, g), f"R={r} G={g} {regime} {inputs}")
+    )
+    nbytes = 4 * n * (r + 1) + 4 * r * g
+    copies = n_copies(nbytes)
+    sets = [(ids, rows)] + [(ids.clone(), rows.clone()) for _ in range(copies - 1)]
+    lib_out = torch.zeros(r, g, device=rows.device)
+    fns = {
+        "ms": lambda k: G.additive_groupby(*sets[k], g, regime=regime),
+        "plain_ms": lambda k: G.additive_groupby_plain(*sets[k], g),
+        "library_ms": lambda k: lib_out.index_add_(1, *sets[k]),
     }
+    res.update(timed(timer, fns, copies))
+    res["profiler_ms"] = profiled_ms(torch, fns["ms"], ("additive",))
+    if regime == "tensor":
+        ops = 2 * (-(-g // 16) * 16) * G.TC_COLS * n
+        res["bound_ms"], res["bound_by"] = bound_ms(nbytes, ops, TC_OPS_PER_S)
+    else:
+        res["bound_ms"], res["bound_by"] = bound_ms(nbytes, r * n)
+    res["copies"] = copies
+    return res
+
+
+def check_minmax(torch, G, ids, vals, valid, mask, g: int, n_min: int, what: str,
+                 decode: str | None = None) -> float:
+    """Kernel B against its plain version, bit for bit (+-inf and NaN
+    included); returns the largest difference over the finite entries."""
+    mn, mx = G.minmax_groupby(ids, vals, valid, mask, g, n_min, decode=decode)
+    pmn, pmx = G.minmax_groupby_plain(ids, vals, valid, mask, g, n_min)
+    check(torch.equal(mn, pmn) and torch.equal(mx, pmx), f"kernel B not exact: {what}")
+    got, want = torch.cat([mn, mx]), torch.cat([pmn, pmx])
+    fin = torch.isfinite(want)
+    return (got[fin] - want[fin]).abs().max().item() if fin.any() else 0.0
+
+
+def kernel_b_case(torch, G, timer, ids, vals, valid, mask, g: int, n_min: int,
+                  inputs: str) -> dict:
+    """Kernel B vs its plain version, bit for bit, then timed L2-cold and
+    L2-warm beside its plain version and two scatter_reduce_ calls."""
+    k, n = vals.shape
+    err = check_minmax(torch, G, ids, vals, valid, mask, g, n_min, f"K={k} G={g} {inputs}")
+    nbytes = n * (4 + 5 * k + 1) + 4 * k * g
+    copies = n_copies(nbytes)
+    sets = [(ids, vals, valid, mask)] + [
+        tuple(t.clone() for t in (ids, vals, valid, mask)) for _ in range(copies - 1)
+    ]
+    idx = [s[0].long()[None].expand(k, n) for s in sets]
+    lo = [torch.where(s[2][:n_min] & s[3][None], s[1][:n_min], F32_MAX) for s in sets]
+    hi = [torch.where(s[2][n_min:] & s[3][None], s[1][n_min:], -F32_MAX) for s in sets]
+    lib_mn = torch.full((n_min, g), math.inf, device=vals.device)
+    lib_mx = torch.full((k - n_min, g), -math.inf, device=vals.device)
+
+    def library(j):
+        lib_mn.scatter_reduce_(1, idx[j][:n_min], lo[j], reduce="amin", include_self=True)
+        lib_mx.scatter_reduce_(1, idx[j][n_min:], hi[j], reduce="amax", include_self=True)
+
+    fns = {
+        "ms": lambda j: G.minmax_groupby(*sets[j], g, n_min),
+        "plain_ms": lambda j: G.minmax_groupby_plain(*sets[j], g, n_min),
+        "library_ms": library,
+    }
+    res = {"shape": f"K={k} n_min={n_min} N={n} G={g}", "inputs": inputs,
+           "regime": "shared" if k * g * 4 <= G.SMEM_BUDGET else "global",
+           "decode": G.minmax_decode(k, g), "max_abs_err": err}
+    res.update(timed(timer, fns, copies))
+    res["profiler_ms"] = profiled_ms(torch, fns["ms"], ("minmax",))
+    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, k * n)
+    res["copies"] = copies
+    return res
+
+
+def edge_cases(torch, G, gen) -> None:
+    """Untimed checks in every regime: ids out of range, half of the rows in
+    one group, NaN and +-inf values confined to their groups (kernel A),
+    +-F32_MAX and +-inf values (kernel B)."""
+    n = 1 << 18
+    for r, g, regime in ((3, 8, "tensor"), (5, 64, "tensor"), (5, 128, "tensor"),
+                         (5, 2048, "shared"), (3, 8192, "shared"), (5, 65536, "global")):
+        ids, rows = uniform_a(torch, r, n, g, gen)
+        ids[: n // 2] = 3 % g
+        ids[::97] = -1
+        ids[::89] = g
+        rows[-1, 5], rows[-1, 6], rows[-1, 7], rows[-1, 10] = math.nan, math.inf, -math.inf, F32_MAX
+        res = check_additive(torch, ids, rows, g, G.additive_groupby(ids, rows, g, regime=regime),
+                             G.additive_groupby_plain(ids, rows, g), f"edge R={r} G={g} {regime}")
+        log(f"phase 2 edge additive_groupby R={r} G={g} {regime}: {json.dumps(res)}")
+    for g in (64, 8192, 65536):
+        ids, vals, valid, mask = uniform_b(torch, 2, n, g, gen)
+        ids[: n // 2] = 1
+        ids[::97] = -1
+        ids[::89] = g
+        vals[0, ::1001] = F32_MAX
+        vals[1, ::1003] = -F32_MAX
+        vals[0, 3], vals[1, 4] = math.inf, -math.inf
+        mn, mx = G.minmax_groupby(ids, vals, valid, mask, g, 1)
+        pmn, pmx = G.minmax_groupby_plain(ids, vals, valid, mask, g, 1)
+        check(torch.equal(mn, pmn) and torch.equal(mx, pmx), f"edge kernel B not exact at G={g}")
+        log(f"phase 2 edge minmax_groupby K=2 G={g}: exact")
+
+
+# kernel A's rule switches between the tensor and shared regimes around these
+# shapes (groupby_cuda.additive_regime); the main path's are (3, 64) and (5, 64)
+RULE_SHAPES_A = ((3, 16), (3, 32), (3, 48), (3, 64), (5, 48), (5, 64), (5, 80), (5, 96))
+# kernel B's decode placement switches at MINMAX_DECODE_IN_KERNEL entries
+RULE_SHAPES_B = (64, 512, 2048, 4096, 8192, 65536)
+
+
+def rule_sweep(torch, G, timer, gen) -> None:
+    """Both sides of each rule, checked against the plain version and timed
+    (L2-cold / L2-warm us) in one run: kernel A's tensor and shared regimes
+    at the shapes where its rule switches, on uniform ids and on the main
+    path's skew (5 live ids, half of the rows in one); kernel B's in-kernel
+    and separate-launch decode at K=2 around its threshold."""
+    for r, g in RULE_SHAPES_A:
+        for kind in ("uniform", "skewed"):
+            ids, rows = uniform_a(torch, r, N_BLOCK, g, gen)
+            if kind == "skewed":
+                live = torch.randperm(g, generator=gen)[:5].to(torch.int32)
+                pick = torch.randint(0, 5, (N_BLOCK,), generator=gen)
+                pick[torch.rand(N_BLOCK, generator=gen) < 0.5] = 0
+                ids = live[pick].cuda()
+            copies = n_copies(4 * N_BLOCK * (r + 1))
+            sets = [(ids, rows)] + [(ids.clone(), rows.clone()) for _ in range(copies - 1)]
+            fns = {}
+            for regime in ("tensor", "shared"):
+                check_additive(torch, ids, rows, g, G.additive_groupby(ids, rows, g, regime=regime),
+                               G.additive_groupby_plain(ids, rows, g), f"rule R={r} G={g} {regime}")
+                fns[regime] = lambda k, regime=regime: G.additive_groupby(*sets[k], g, regime=regime)
+            t = timed(timer, fns, copies)
+            us = {k: round(v * 1e3, 2) for k, v in t.items()}
+            log(f"phase 2 rule additive_groupby R={r} G={g} {kind}: rule picks "
+                f"{G.additive_regime(r, g)}, us {json.dumps(us)}")
+    for g in RULE_SHAPES_B:
+        ids, vals, valid, mask = uniform_b(torch, 2, N_BLOCK, g, gen)
+        copies = n_copies(N_BLOCK * 15)
+        sets = [(ids, vals, valid, mask)] + [
+            tuple(t.clone() for t in (ids, vals, valid, mask)) for _ in range(copies - 1)
+        ]
+        fns = {}
+        for decode in ("kernel", "launch"):
+            check_minmax(torch, G, ids, vals, valid, mask, g, 1, f"rule G={g} {decode}", decode)
+            fns[decode] = lambda j, decode=decode: G.minmax_groupby(*sets[j], g, 1, decode=decode)
+        t = timed(timer, fns, copies)
+        us = {k: round(v * 1e3, 2) for k, v in t.items()}
+        log(f"phase 2 rule minmax_groupby K=2 G={g} uniform: rule picks "
+            f"{G.minmax_decode(2, g)}, us {json.dumps(us)}")
 
 
 # ------------------------------------------------------------------- lake
@@ -300,6 +495,7 @@ def profiled_query(torch, sess, qname: str, text: str):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     busy_us = {"all": 0.0, "additive": 0.0, "minmax": 0.0}
+    calls = {"additive": 0, "minmax": 0}
     for ev in prof.key_averages():
         if str(getattr(ev, "device_type", "")).endswith("CUDA"):
             us = getattr(ev, "self_device_time_total", 0.0)
@@ -307,22 +503,25 @@ def profiled_query(torch, sess, qname: str, text: str):
             for k in ("additive", "minmax"):
                 if k in ev.key:
                     busy_us[k] += us
+                    calls[k] += ev.count
     if busy_us["all"] == 0.0:
         log(f"phase 4 {qname} profile: the profiler saw no device time (not measured)")
     else:
         log(
             f"phase 4 {qname} profile: wall {wall_ms:.3f} ms, device busy "
             f"{busy_us['all'] / 1e3:.3f} ms (idle share {1 - busy_us['all'] / 1e3 / wall_ms:.4f}), "
-            f"kernel A {busy_us['additive'] / 1e3:.3f} ms, kernel B {busy_us['minmax'] / 1e3:.3f} ms"
+            f"kernel A {busy_us['additive'] / 1e3:.3f} ms in {calls['additive']} kernels, "
+            f"kernel B {busy_us['minmax'] / 1e3:.3f} ms in {calls['minmax']} kernels"
         )
     return res
 
 
-def drive_main_path(p, device=None) -> tuple[dict, dict]:
+def drive_main_path(p, device=None) -> tuple[dict, dict, dict]:
     """Phase 4: every query on the "gpu" engine (on `device`, default the
     card) and the "cpu" engine, cold then warm; the engines must agree, the
     GPU runs must stay on the device and launch the kernels. Returns the
-    launch counts of the run and the kernel shapes it used."""
+    launch counts of the run, the kernel shapes it used with their call
+    counts, and one block's inputs per shape (cloned)."""
     import torch
 
     from parseable_tpu_torch.ops import groupby_cuda as G
@@ -330,16 +529,20 @@ def drive_main_path(p, device=None) -> tuple[dict, dict]:
     from parseable_tpu_torch.query.session import QuerySession
 
     shapes: dict[str, dict] = {"additive_groupby": {}, "minmax_groupby": {}}
+    inputs: dict[str, dict] = {"additive_groupby": {}, "minmax_groupby": {}}
     real_a, real_b = K.additive_groupby, K.minmax_groupby
 
+    def record(name, key, tensors):
+        shapes[name][key] = shapes[name].get(key, 0) + 1
+        if key not in inputs[name]:
+            inputs[name][key] = tuple(t.clone() for t in tensors)
+
     def rec_a(ids, rows, g):
-        key = (rows.shape[0], rows.shape[1], g)
-        shapes["additive_groupby"][key] = shapes["additive_groupby"].get(key, 0) + 1
+        record("additive_groupby", (rows.shape[0], rows.shape[1], g), (ids, rows))
         return real_a(ids, rows, g)
 
     def rec_b(ids, vals, valid, mask, g, n_min):
-        key = (vals.shape[0], n_min, vals.shape[1], g)
-        shapes["minmax_groupby"][key] = shapes["minmax_groupby"].get(key, 0) + 1
+        record("minmax_groupby", (vals.shape[0], n_min, vals.shape[1], g), (ids, vals, valid, mask))
         return real_b(ids, vals, valid, mask, g, n_min)
 
     on_card = device is None or torch.device(device).type == "cuda"
@@ -393,7 +596,7 @@ def drive_main_path(p, device=None) -> tuple[dict, dict]:
             check(n > 0, f"{name} was never launched on the main path")
     log(f"phase 4 launches on the main path: {launches}")
     log(f"phase 4 rows/s: {json.dumps(per_query)}")
-    return launches, shapes
+    return launches, shapes, inputs
 
 
 
@@ -428,25 +631,34 @@ def main() -> int:
     check(report.get("healthy") is True, f"device probe failed: {report}")
     log(f"phase 1 device: {report}")
     log(f"phase 1 build: kernels built and loaded in {G.build_and_load():.3f} s")
+    timer = DeviceTimer(torch)
 
-    # -- phase 2: both kernels in both regimes, against their plain versions
+    # -- phase 2: every regime of both kernels against its plain version,
+    # on uniform inputs at the shapes the main path does not use, then the
+    # edge cases in every regime
     gen = torch.Generator().manual_seed(args.seed)
-    for g in (128, 2048, 65536):
-        res = kernel_a_case(torch, G, 5, N_BLOCK, g, gen)
+    for r, g, regime in ((5, 128, "tensor"), (5, 2048, "shared"), (5, 65536, "global")):
+        res = kernel_a_case(torch, G, timer, *uniform_a(torch, r, N_BLOCK, g, gen), g,
+                            "uniform", regime=regime)
         log(f"phase 2 additive_groupby {json.dumps(res)}")
-        res = kernel_b_case(torch, G, 2, 1, N_BLOCK, g, gen)
+    for g in (128, 2048, 8192, 65536):
+        res = kernel_b_case(torch, G, timer, *uniform_b(torch, 2, N_BLOCK, g, gen), g, 1,
+                            "uniform")
         log(f"phase 2 minmax_groupby {json.dumps(res)}")
+    edge_cases(torch, G, gen)
+    rule_sweep(torch, G, timer, gen)
 
     # -- phases 3 and 4: the lake, then the main path on it
     work = ROOT / "build" / "smoke_lake"
     shutil.rmtree(work, ignore_errors=True)
     try:
         p = build_lake(work, args.seed, MINUTES, N_BLOCK)
-        launches, shapes = drive_main_path(p)
+        launches, shapes, inputs = drive_main_path(p)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # -- phase 5: each kernel at the shapes the main path gave it
+    # -- phase 5: each kernel at the shapes the main path gave it, on one
+    # block's real inputs and on uniform inputs of the same shape
     report = []
     replaces = {
         "additive_groupby": "parseable_tpu/ops/pallas_groupby.py:53",
@@ -455,17 +667,22 @@ def main() -> int:
     for name in ("additive_groupby", "minmax_groupby"):
         cases = []
         for key, calls in sorted(shapes[name].items()):
-            if name == "additive_groupby":
-                r, n, g = key
-                res = kernel_a_case(torch, G, r, n, g, gen)
-            else:
-                k, n_min, n, g = key
-                res = kernel_b_case(torch, G, k, n_min, n, g, gen)
-            res["main_path_calls"] = calls
-            log(f"phase 5 {name} {json.dumps(res)}")
-            cases.append(res)
-        # the line reports the main path's heaviest shape
-        top = max(cases, key=lambda c: c["bound_ms"])
+            for kind in ("main path", "uniform"):
+                if name == "additive_groupby":
+                    r, n, g = key
+                    data = inputs[name][key] if kind == "main path" else uniform_a(
+                        torch, r, n, g, gen)
+                    res = kernel_a_case(torch, G, timer, *data, g, kind)
+                else:
+                    k, n_min, n, g = key
+                    data = inputs[name][key] if kind == "main path" else uniform_b(
+                        torch, k, n, g, gen)
+                    res = kernel_b_case(torch, G, timer, *data, g, n_min, kind)
+                res["main_path_calls"] = calls
+                log(f"phase 5 {name} {json.dumps(res)}")
+                cases.append(res)
+        # the line reports the main path's heaviest shape, on its own inputs
+        top = max((c for c in cases if c["inputs"] == "main path"), key=lambda c: c["bound_ms"])
         report.append(
             {
                 "name": name,
@@ -480,6 +697,10 @@ def main() -> int:
                 "bound_by": top["bound_by"],
                 "library_ms": top["library_ms"],
                 "shape": top["shape"],
+                "regime": top["regime"],
+                "inputs": "main path, L2-cold",
+                "ms_l2_warm": top["ms_l2_warm"],
+                "profiler_ms": top["profiler_ms"],
             }
         )
     log(smi)  # the card, as nvidia-smi names it and its power limit

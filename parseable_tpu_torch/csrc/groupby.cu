@@ -1,69 +1,142 @@
 // Hand-written Hopper (sm_90a) kernels for the per-block group-by.
 //
 // One scanned block of the dense aggregate path reduces into a [rows, groups]
-// partial aggregate. These two kernels compute all of it:
+// partial aggregate. These kernels compute all of it. Main-path blocks hold
+// N = 2^20 rows whose ids are often heavily skewed: a block is one minute
+// file, so a time-bin key is constant in it, and `status` is 200 for half of
+// the rows.
 //
 // Kernel A, additive_groupby: out[R, G] = rows[R, N] @ onehot(ids)[N, G].
 //   Replaces parseable_tpu/ops/pallas_groupby.py:53 additive_groupby_pallas
 //   (body _additive_kernel :33, pallas_call :63), the additive half of
 //   parseable_tpu/ops/kernels.py:108 fused_groupby_block. The rows are
-//   [row mask | per-aggregate validity | masked sums].
-//   Bound: bytes. It must read ids and rows once, 4N(R+1) bytes, and does R*N
-//   adds, far below the card's f32 rate; at N = 2^20, R = 5 that is 25 MB, or
-//   7.5 us at 3.35 TB/s.
-//   Design: the TPU kernel walks 2048-row tiles in order and carries the
-//   [R, G] sum in VMEM from one grid step to the next. Blocks on the card run
-//   in no order and share nothing, so each CTA keeps its own [R, G] f32
-//   accumulator in shared memory, walks rows with a grid-stride loop, adds
-//   with shared-memory atomics, and flushes its nonzero entries into the
-//   output with one global atomicAdd each. When R*G*4 bytes exceed the
-//   shared-memory budget (the multi-key path: path x host reaches G = 2048
-//   and more), each row adds straight into global memory instead. The CTA
-//   count keeps the flush small against the rows each CTA reads.
-//   Numbers: counts are sums of 0/1 in f32, exact below 2^24 in any order (a
-//   block holds at most 2^22 rows); sums are plain f32 adds, no TF32 or bf16.
-//   Ids outside [0, G) are dropped, as the one-hot product drops them.
+//   [row mask | per-aggregate validity | masked sums]. Ids outside [0, G) are
+//   dropped, as the one-hot product drops them.
+//   Bound: bytes. It must read ids and rows once, 4N(R+1) bytes; at N = 2^20,
+//   R = 5 that is 25 MB, or 7.5 us at 3.35 TB/s. The wrapper picks one of
+//   three regimes per shape (ops/groupby_cuda.py additive_regime); the entry
+//   zeroes the output with a memset first.
+//
+//   tensor (R <= 8, G <= 128, the product's operations bound under the bytes
+//     bound, and fewer 16-group m-tiles than value rows): the Pallas kernel's
+//     own formula on the tensor cores, out^T[G, 3R] = onehot^T[G, K] X[K, 3R],
+//     with mma.sync.m16n8k16 (bf16 in, f32 accumulate). Each warp builds the
+//     one-hot fragment in registers from its tile of ids, one bf16x2 compare
+//     (HSET2) per register; it never touches memory. Each f32 value becomes
+//     three bf16 pieces split by truncation, hi = x & 0xFFFF0000, mid =
+//     trunc16(x - hi), lo = x - hi - mid: hi + mid + lo == x exactly and no
+//     piece overflows (rounding 3.4e38 to bf16 gives inf). The pieces go to
+//     three n-tiles, so a lane reads one float4 of its value row and makes
+//     all three pieces with four instructions. The k order inside a 16-row
+//     tile is permuted so that lane (group g, thread t) owns data rows
+//     4t..4t+3 in both the A and the B fragment: its ids are one int4 and its
+//     values one float4. Each warp streams 64-row chunks through a 3-stage
+//     ring in shared memory filled by cp.async, so its loads hold no
+//     registers. The [G, R] sums stay in registers for the whole row walk and
+//     are flushed once per CTA, with at most G*R global atomics: no atomic is
+//     left in the row loop, so skew costs nothing. What bounds it is the mma
+//     issue (three per m-tile and 16 rows), so its time grows with G. A NaN
+//     or +-inf value would poison every group of the product (inf * 0 = NaN),
+//     so it enters the product as 0 and is added into its own group by a
+//     global atomic on a side path. Counts (0/1 rows) are exact: 0/1 products
+//     accumulate in f32, exact below 2^24. Pieces are exact in bf16 for
+//     |x| >= 2^-110; below that the bits under 2^-133 are dropped.
+//     Why mma.sync and not wgmma: the one-hot operand is made in registers
+//     per 16-row tile and the product is tiny (M = G <= 128, N = 24); wgmma
+//     wants its B operand in shared memory and 64-row tiles of A, so every
+//     tile would take a round trip through shared memory and a fence for no
+//     gain at these sizes.
+//   shared (R*G*4 fits in shared memory): each CTA keeps an [R, G] f32
+//     accumulator in shared memory and flushes its nonzero entries with
+//     global atomics. Each lane loads four consecutive rows a step with
+//     vector loads (the first 4 or 8 value rows in registers) before it folds
+//     any, so a step waits on memory once. Aggregation is warp-adaptive (fold_peers below): a warp
+//     whose ids collide heavily sums the lanes that share an id
+//     (__match_any_sync, then pointer jumping over shuffles) and its leader
+//     issues one atomic per distinct id and row; a warp of spread ids skips
+//     the match, which costs more than the collisions it saves. The grid is
+//     as many CTAs as the card holds: timed over CTA counts at G = 8192,
+//     fewer CTAs, each flushing less, were slower; the flush is not what
+//     costs, the reads need every SM.
+//   global (anything larger): the same adaptive aggregation, atomics
+//     straight into the output.
 //
 // Kernel B, minmax_groupby: per-group min of the first n_min value rows and
 //   max of the rest, with the semantics of kernels.py:233-248 (segment_min /
 //   segment_max): a row that is masked off or invalid contributes +F32_MAX to
 //   a min and -F32_MAX to a max; a group no row reaches keeps the identity,
-//   +inf for a min and -inf for a max.
+//   +inf for a min and -inf for a max; a NaN propagates.
 //   Bound: bytes. It reads ids, K value rows, K validity rows and the mask,
 //   N(4 + 5K + 1) bytes, and writes 4KG.
-//   Design: f32 maps to an order-preserving int32 key, so min and max become
-//   integer atomicMin / atomicMax, exact in any order. Each CTA keeps [K, G]
-//   keys in shared memory and flushes them into a global key buffer, or adds
-//   straight into the global buffer when K*G*4 exceeds the budget. A plain
-//   read before each atomic skips the atomics that cannot change the value
-//   (keys only move one way). A last pass decodes the keys to f32.
+//   Design: f32 maps to an order-preserving u32 key, complemented for a min,
+//   so that every fold is an unsigned max and 0 means "no row": the key
+//   buffer is zeroed with one memset, not a kernel. Rows fold into a per-CTA
+//   [K, G] key array in shared memory with the same warp-adaptive
+//   aggregation as kernel A, the max over peers taken by pointer jumping
+//   over shuffles (__reduce_max_sync with a different peer mask in each
+//   group of the warp measured several times slower), and a leader's atomic
+//   only after a plain read shows it can change the key. Each CTA flushes
+//   its keys into the global buffer; the last CTA to finish (a global
+//   counter behind __threadfence) decodes them into the output, so one
+//   launch does it all. Past ops/groupby_cuda.py MINMAX_DECODE_IN_KERNEL
+//   (2048) entries the decode is a launch of its own, which is faster once
+//   one CTA would walk thousands of keys alone (the wrapper's choice,
+//   minmax_decode, timed both ways). When K*G*4 exceeds the
+//   shared-memory budget the rows fold straight into the global buffer.
 //
 // Interface: plain C, called through ctypes. Every pointer is a device
-// pointer; `stream` is the caller's cudaStream_t. The output buffers are
-// allocated by the caller; A's output must be zeroed. Each entry returns
-// cudaGetLastError() after its launches (0 on success).
+// pointer; `stream` is the caller's cudaStream_t. The caller allocates the
+// outputs; B's key buffer holds K*G + 1 words. Device attributes are read
+// once per device and the occupancy of a kernel once per (device, kernel,
+// shared-memory size). Each entry returns cudaGetLastError() after its
+// launches (0 on success), or cudaErrorInvalidValue for a regime the shape
+// does not fit.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <map>
+#include <mutex>
+#include <tuple>
+
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kSmemCap = 200 * 1024;  // bytes of dynamic shared memory a CTA may ask for
+constexpr int kThreads = 512;       // atomic regimes and kernel B
+constexpr int kHeldB = 4;           // kernel B: value rows held in registers
+constexpr int kAggLanes = 6;        // group size from which a warp aggregates
+constexpr int kTcThreads = 256;     // tensor regime: 8 warps
+constexpr int kTcChunk = 64;        // rows of one ring stage: four 16-row k-tiles
+constexpr int kTcStages = 3;        // ring stages per warp
+constexpr int kTcMaxMTiles = 8;     // 16 groups each: G <= 128
+constexpr int kTcCols = 8;          // value rows per n-tile: R <= 8
+constexpr int kSmemCap = 200 * 1024;   // bytes of dynamic shared memory a CTA may ask for
 constexpr float kF32Max = 3.4e38f;
+constexpr unsigned kFull = 0xffffffffu;
+
+enum AdditiveMode { kTensor = 0, kShared = 1, kGlobal = 2 };
+
+// ------------------------------------------------------------ host caches
 
 struct DeviceInfo {
   int sms = 0;
   int smem_optin = 0;
 };
 
-DeviceInfo device_info() {
+std::mutex g_mu;
+std::map<int, DeviceInfo> g_info;
+std::map<std::tuple<int, const void*, int, int>, int> g_resident;
+std::map<std::pair<int, const void*>, int> g_smem_set;
+
+DeviceInfo device_info(int dev) {
+  std::lock_guard<std::mutex> lock(g_mu);
+  auto it = g_info.find(dev);
+  if (it != g_info.end()) return it->second;
   DeviceInfo info;
-  int dev = 0;
-  cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&info.sms, cudaDevAttrMultiProcessorCount, dev);
   cudaDeviceGetAttribute(&info.smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  g_info[dev] = info;
   return info;
 }
 
@@ -71,224 +144,648 @@ int smem_budget(const DeviceInfo& info) {
   return info.smem_optin < kSmemCap ? info.smem_optin : kSmemCap;
 }
 
-long long ceil_div(long long a, long long b) { return (a + b - 1) / b; }
-
-// CTAs for a privatised-accumulator kernel: each CTA should read several
-// times more rows than the `entries` it flushes, but the grid should still
-// cover every SM while there are rows for it.
-int privatised_grid(long long n, long long entries, int max_resident, int sms) {
-  long long per_cta = entries * 4;
-  if (per_cta < 4LL * kThreads) per_cta = 4LL * kThreads;
-  long long ctas = ceil_div(n, per_cta);
-  long long fill = ceil_div(n, kThreads);
-  if (fill > sms) fill = sms;
-  if (ctas < fill) ctas = fill;
-  if (ctas > max_resident) ctas = max_resident;
-  return ctas < 1 ? 1 : (int)ctas;
+// CTAs of `kernel` that one SM holds at `threads` x `smem` bytes of dynamic
+// shared memory; raises the kernel's shared-memory limit first when needed.
+cudaError_t resident_ctas(int dev, const void* kernel, int threads, int smem, int* out) {
+  std::lock_guard<std::mutex> lock(g_mu);
+  const auto key = std::make_tuple(dev, kernel, threads, smem);
+  auto it = g_resident.find(key);
+  if (it != g_resident.end()) {
+    *out = it->second;
+    return cudaSuccess;
+  }
+  int& limit = g_smem_set[std::make_pair(dev, kernel)];
+  if (smem > limit) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    limit = smem;
+  }
+  int per_sm = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                                  (size_t)smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) per_sm = 1;
+  g_resident[key] = per_sm;
+  *out = per_sm;
+  return cudaSuccess;
 }
 
-int streaming_grid(long long n, int sms) {
-  long long ctas = ceil_div(n, kThreads);
-  long long cap = (long long)sms * 16;
+__host__ __device__ inline long long ceil_div(long long a, long long b) { return (a + b - 1) / b; }
+
+int clamp_grid(long long ctas, long long cap) {
   if (ctas > cap) ctas = cap;
   return ctas < 1 ? 1 : (int)ctas;
 }
 
-// ------------------------------------------------------------------ kernel A
+// CTAs for a kernel with a per-CTA accumulator: as many as the card holds at
+// once, while there are rows for them. Fewer CTAs would shrink the flush, but
+// on this card the flush is not what costs: the reads need every SM.
+int resident_grid(long long n, long long resident) {
+  return clamp_grid(ceil_div(n, (long long)kThreads * 4), resident);
+}
 
-__global__ void additive_smem_kernel(const int* __restrict__ ids,
-                                     const float* __restrict__ rows,
-                                     float* __restrict__ out, int R, long long N,
-                                     int G) {
-  extern __shared__ float acc[];  // [R * G]
-  const int rg = R * G;
-  for (int j = threadIdx.x; j < rg; j += blockDim.x) acc[j] = 0.f;
-  __syncthreads();
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < N;
-       i += stride) {
-    const int g = ids[i];
-    if ((unsigned)g >= (unsigned)G) continue;
-    for (int r = 0; r < R; ++r) {
-      const float v = rows[(long long)r * N + i];
-      if (v != 0.f) atomicAdd(&acc[r * G + g], v);
+int streaming_grid(long long n, int sms) {
+  return clamp_grid(ceil_div(n, (long long)kThreads * 4), (long long)sms * 16);
+}
+
+// ------------------------------------------------------------ warp helpers
+
+// Lanes of the warp that share `key`, and the next higher lane among them
+// (-1 for the highest). Every lane of the warp must call it.
+struct Peers {
+  int next;
+  int steps;  // pointer-jumping steps the largest group of the warp needs
+  bool leader;
+};
+
+__device__ __forceinline__ Peers warp_peers(int key) {
+  const int lane = threadIdx.x & 31;
+  Peers p;
+  const unsigned mask = __match_any_sync(kFull, key);
+  const unsigned above = mask & (0xFFFFFFFEu << lane);
+  p.next = above ? __ffs(above) - 1 : -1;
+  const int most = (int)__reduce_max_sync(kFull, (unsigned)__popc(mask));
+  p.steps = 32 - __clz(most - 1);
+  p.leader = (mask & ((1u << lane) - 1u)) == 0u;
+  return p;
+}
+
+// Warp-adaptive aggregation: a warp matches its ids only when a quick test
+// on the first row of its step finds a crowded group, one of at least
+// kAggLanes lanes among the groups of three probe lanes (a shuffle and a
+// ballot each); otherwise every lane is a group of its own and a fold costs
+// no match. Skewed ids (a constant time bin, status 200 on half of the rows)
+// pay one atomic per distinct id; spread ids, where a match costs more than
+// the collisions it saves, pay three ballots a step.
+__device__ __forceinline__ bool crowded(int key) {
+  int most = 0;
+#pragma unroll
+  for (int src = 0; src < 32; src += 11) {
+    const int probe = __shfl_sync(kFull, key, src);
+    const int n = __popc(__ballot_sync(kFull, key == probe));
+    most = n > most ? n : most;
+  }
+  return most >= kAggLanes;
+}
+
+__device__ __forceinline__ Peers fold_peers(int key, bool crowd) {
+  if (crowd) return warp_peers(key);
+  Peers solo;
+  solo.next = -1;
+  solo.steps = 0;
+  solo.leader = true;
+  return solo;
+}
+
+// `v` combined by `op` over the lanes that share this lane's key, by pointer
+// jumping: after step s each lane holds the combination of 2^s consecutive
+// peers from itself, so the lowest lane (the leader) ends with all of them.
+// Every lane of the warp must call it.
+template <typename T, typename Op>
+__device__ __forceinline__ T peer_reduce(T v, const Peers& p, Op op) {
+  int next = p.next;
+  for (int s = 0; s < p.steps; ++s) {
+    const int src = next < 0 ? 0 : next;
+    const T o = __shfl_sync(kFull, v, src);
+    const int after = __shfl_sync(kFull, next, src);
+    if (next >= 0) {
+      v = op(v, o);
+      next = after;
     }
   }
-  __syncthreads();
-  for (int j = threadIdx.x; j < rg; j += blockDim.x) {
-    const float v = acc[j];
-    if (v != 0.f) atomicAdd(&out[j], v);
+  return v;
+}
+
+// ------------------------------------------------------- kernel A, tensor
+
+__device__ __forceinline__ float trunc16(float x) {
+  return __uint_as_float(__float_as_uint(x) & 0xFFFF0000u);
+}
+
+// {lo, hi} as a bf16x2 register; both must be exact in bf16 (low 16 bits 0)
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+__device__ __forceinline__ unsigned bf16x2_of(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// 1.0 or 0.0 in each bf16 half: a == b
+__device__ __forceinline__ unsigned eq_bf16x2(unsigned a, unsigned b) {
+  const __nv_bfloat162 r = __heq2(*reinterpret_cast<const __nv_bfloat162*>(&a),
+                                  *reinterpret_cast<const __nv_bfloat162*>(&b));
+  return *reinterpret_cast<const unsigned*>(&r);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One stage of a warp's ring: the ids and up to 8 value rows of 64 rows. A
+// value row is padded by 16 bytes so that the 8 rows of a fragment load fall
+// in different banks.
+constexpr int kStageIds = kTcChunk;                  // ints
+constexpr int kStageRow = kTcChunk + 4;              // floats per value row
+constexpr int kStageWords = kStageIds + kTcCols * kStageRow;
+constexpr int kTcSmem = kTcThreads / 32 * kTcStages * kStageWords * 4;
+
+// Copies chunk `c` (rows [64c, 64c + 64)) into `stage`: 16-byte cp.async
+// copies spread over the lanes when the chunk is whole and aligned, else
+// plain loads with the edge masked (ids past N become -1, values 0).
+__device__ __forceinline__ void tc_stage_load(int* stage, const int* __restrict__ ids,
+                                              const float* __restrict__ rows, int R,
+                                              long long N, long long c, int vec) {
+  const int lane = threadIdx.x & 31;
+  const long long base = c * kTcChunk;
+  float* vals = reinterpret_cast<float*>(stage + kStageIds);
+  if (vec && base + kTcChunk <= N) {
+    const int segs = (1 + R) * (kTcChunk / 4);  // 16-byte segments
+    for (int s = lane; s < segs; s += 32) {
+      const int row = s / (kTcChunk / 4) - 1, off = 4 * (s % (kTcChunk / 4));
+      if (row < 0) {
+        cp_async16(stage + off, ids + base + off);
+      } else {
+        cp_async16(vals + row * kStageRow + off, rows + (long long)row * N + base + off);
+      }
+    }
+  } else {
+    for (int j = lane; j < kTcChunk; j += 32) {
+      const bool in = base + j < N;
+      stage[j] = in ? ids[base + j] : -1;
+      for (int r = 0; r < R; ++r) vals[r * kStageRow + j] = in ? rows[(long long)r * N + base + j] : 0.f;
+    }
   }
 }
 
-__global__ void additive_global_kernel(const int* __restrict__ ids,
-                                       const float* __restrict__ rows,
-                                       float* __restrict__ out, int R,
-                                       long long N, int G) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < N;
-       i += stride) {
-    const int g = ids[i];
-    if ((unsigned)g >= (unsigned)G) continue;
-    for (int r = 0; r < R; ++r) {
-      const float v = rows[(long long)r * N + i];
-      if (v != 0.f) atomicAdd(&out[(long long)r * G + g], v);
+// One 16-row k-tile from shared memory into the accumulators. Lane (g, t):
+// g = lane / 4 is its value row (B column) and its group within each
+// 16-group m-tile (with g + 8); t = lane % 4 owns data rows 4t..4t+3 of the
+// tile, which stand at k = 2t, 2t+1, 2t+8, 2t+9 of the mma's K: the
+// permutation makes its ids one int4 and its values one float4, in A's
+// fragment and B's alike.
+template <int MT>
+__device__ __forceinline__ void tc_tile(const int* stage, int q, const unsigned (&target)[MT][2],
+                                        float (&acc)[MT][3][4], float* __restrict__ out, int G,
+                                        int R) {
+  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+  const int4 iv = *reinterpret_cast<const int4*>(stage + 16 * q + 4 * tig);
+  float4 xv = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (gid < R) {
+    xv = *reinterpret_cast<const float4*>(stage + kStageIds + gid * kStageRow + 16 * q + 4 * tig);
+  }
+  const int id[4] = {iv.x, iv.y, iv.z, iv.w};
+  float f[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) f[e] = (unsigned)id[e] < (unsigned)G ? (float)id[e] : -1.f;
+  const unsigned ids01 = bf16x2_of(f[0], f[1]), ids23 = bf16x2_of(f[2], f[3]);
+
+  const float x[4] = {xv.x, xv.y, xv.z, xv.w};
+  float hi[4], d[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    hi[e] = trunc16(x[e]);
+    d[e] = x[e] - hi[e];  // NaN exactly when x is NaN or +-inf
+  }
+  const float probe = (d[0] + d[1]) + (d[2] + d[3]);
+  if (probe != probe) {
+    // side path: a non-finite value goes into its own group only
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (!isfinite(x[e])) {
+        if ((unsigned)id[e] < (unsigned)G) atomicAdd(&out[(long long)gid * G + id[e]], x[e]);
+        hi[e] = 0.f;
+        d[e] = 0.f;
+      }
     }
+  }
+  float mid[4], lo[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    mid[e] = trunc16(d[e]);
+    lo[e] = d[e] - mid[e];
+  }
+  const unsigned b[3][2] = {{pack_bf16(hi[0], hi[1]), pack_bf16(hi[2], hi[3])},
+                            {pack_bf16(mid[0], mid[1]), pack_bf16(mid[2], mid[3])},
+                            {pack_bf16(lo[0], lo[1]), pack_bf16(lo[2], lo[3])}};
+#pragma unroll
+  for (int j = 0; j < MT; ++j) {
+    const unsigned a[4] = {eq_bf16x2(ids01, target[j][0]), eq_bf16x2(ids01, target[j][1]),
+                           eq_bf16x2(ids23, target[j][0]), eq_bf16x2(ids23, target[j][1])};
+#pragma unroll
+    for (int p = 0; p < 3; ++p) mma_bf16(acc[j][p], a, b[p][0], b[p][1]);
+  }
+}
+
+// Each warp walks 64-row chunks through a ring of kTcStages stages in shared
+// memory, kept full with cp.async, so that its loads need no registers and
+// overlap its mma work.
+template <int MT>
+__global__ void __launch_bounds__(kTcThreads, MT <= 4 ? 2 : 1)
+    additive_tc_kernel(const int* __restrict__ ids, const float* __restrict__ rows,
+                       float* __restrict__ out, int R, long long N, int G, int vec) {
+  extern __shared__ __align__(16) int ring[];  // [warps][kTcStages][kStageWords]
+  __shared__ float part[MT * 16 * kTcCols];    // [group][value row], the CTA's sums
+  for (int j = threadIdx.x; j < MT * 16 * kTcCols; j += blockDim.x) part[j] = 0.f;
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3, warp = threadIdx.x >> 5;
+  int* my_ring = ring + warp * kTcStages * kStageWords;
+  unsigned target[MT][2];  // groups 16j + gid and 16j + gid + 8, in both halves
+#pragma unroll
+  for (int j = 0; j < MT; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float t = (float)(16 * j + gid + 8 * h);
+      target[j][h] = bf16x2_of(t, t);
+    }
+  }
+  float acc[MT][3][4];
+#pragma unroll
+  for (int j = 0; j < MT; ++j)
+#pragma unroll
+    for (int p = 0; p < 3; ++p)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][p][e] = 0.f;
+
+  const int warps = blockDim.x >> 5;
+  const long long nwarps = (long long)gridDim.x * warps;
+  const long long chunks = ceil_div(N, kTcChunk);
+  const long long first = (long long)blockIdx.x * warps + warp;
+  const long long mine = first < chunks ? ceil_div(chunks - first, nwarps) : 0;
+#pragma unroll
+  for (int s = 0; s < kTcStages - 1; ++s) {
+    if (s < mine) tc_stage_load(my_ring + s * kStageWords, ids, rows, R, N, first + s * nwarps, vec);
+    cp_async_commit();
+  }
+  for (long long k = 0; k < mine; ++k) {
+    const long long ahead = k + kTcStages - 1;
+    if (ahead < mine) {
+      tc_stage_load(my_ring + (int)(ahead % kTcStages) * kStageWords, ids, rows, R, N,
+                    first + ahead * nwarps, vec);
+    }
+    cp_async_commit();
+    cp_async_wait<kTcStages - 1>();
+    __syncwarp();
+    const int* stage = my_ring + (int)(k % kTcStages) * kStageWords;
+#pragma unroll
+    for (int q = 0; q < kTcChunk / 16; ++q) tc_tile<MT>(stage, q, target, acc, out, G, R);
+    __syncwarp();
+  }
+
+  // D fragment: element 2h + c is group 16j + gid + 8h, value row 2t + c.
+#pragma unroll
+  for (int j = 0; j < MT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int g = 16 * j + gid + 8 * (e >> 1), r = 2 * tig + (e & 1);
+      const float s = (acc[j][2][e] + acc[j][1][e]) + acc[j][0][e];
+      if (s != 0.f && r < R && g < G) atomicAdd(&part[g * kTcCols + r], s);
+    }
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < MT * 16 * kTcCols; j += blockDim.x) {
+    const int g = j / kTcCols, r = j % kTcCols;
+    const float v = part[j];
+    if (g < G && r < R && v != 0.f) atomicAdd(&out[(long long)r * G + g], v);
+  }
+}
+
+// ------------------------------------------------- kernel A, atomic regimes
+
+// Four consecutive entries of one array from entry i: one vector load when
+// `whole` (aligned, all four inside), else one by one with `fill` past N.
+__device__ __forceinline__ void load4(int (&d)[4], const int* __restrict__ p, long long i,
+                                      long long N, bool whole, int fill) {
+  if (whole) {
+    const int4 v = __ldg(reinterpret_cast<const int4*>(p + i));
+    d[0] = v.x, d[1] = v.y, d[2] = v.z, d[3] = v.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[e] = i + e < N ? __ldg(p + i + e) : fill;
+  }
+}
+
+__device__ __forceinline__ void load4(float (&d)[4], const float* __restrict__ p, long long i,
+                                      long long N, bool whole, float fill) {
+  if (whole) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p + i));
+    d[0] = v.x, d[1] = v.y, d[2] = v.z, d[3] = v.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[e] = i + e < N ? __ldg(p + i + e) : fill;
+  }
+}
+
+__device__ __forceinline__ void load4(uint8_t (&d)[4], const uint8_t* __restrict__ p, long long i,
+                                      long long N, bool whole, uint8_t fill) {
+  if (whole) {
+    const uchar4 v = __ldg(reinterpret_cast<const uchar4*>(p + i));
+    d[0] = v.x, d[1] = v.y, d[2] = v.z, d[3] = v.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[e] = i + e < N ? __ldg(p + i + e) : fill;
+  }
+}
+
+// Each lane folds four consecutive rows a step (a warp 128); every load of
+// the step, the first HELD value rows held in registers, is issued before
+// the first fold, so a step waits on memory once.
+// With 4 held rows the kernel fits in 32 registers, so that four CTAs share
+// an SM and one wave covers a main-path block of 2^20 rows.
+template <int MODE, int HELD>  // MODE kShared or kGlobal
+__global__ void __launch_bounds__(kThreads, HELD <= 4 ? 4 : 2)
+    additive_atomic_kernel(const int* __restrict__ ids, const float* __restrict__ rows,
+                           float* __restrict__ out, int R, long long N, int G, int vec) {
+  extern __shared__ float acc[];  // kShared: [R, G]
+  if (MODE == kShared) {
+    for (int j = threadIdx.x; j < R * G; j += blockDim.x) acc[j] = 0.f;
+    __syncthreads();
+  }
+  float* dst = MODE == kShared ? acc : out;
+  const int lane = threadIdx.x & 31;
+  const long long step = (long long)gridDim.x * blockDim.x * 4;
+  // warp-uniform loop: every lane takes part in the match below
+  for (long long base = ((long long)blockIdx.x * blockDim.x + (threadIdx.x & ~31)) * 4;
+       base < N; base += step) {
+    const long long i = base + 4 * lane;
+    const bool whole = vec && i + 4 <= N;
+    int g[4];
+    float v[HELD][4];
+    load4(g, ids, i, N, whole, -1);
+#pragma unroll
+    for (int r = 0; r < HELD; ++r) {
+      if (r < R) {
+        load4(v[r], rows + (long long)r * N, i, N, whole, 0.f);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[r][e] = 0.f;
+      }
+    }
+    const bool crowd = crowded((unsigned)g[0] < (unsigned)G ? g[0] : -1);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool inside = (unsigned)g[e] < (unsigned)G;
+      const Peers peers = fold_peers(inside ? g[e] : -1, crowd);
+      auto fold = [&](int r, float x) {
+        x = peer_reduce(x, peers, [](float a, float b) { return a + b; });
+        if (inside && peers.leader && x != 0.f) atomicAdd(dst + (long long)r * G + g[e], x);
+      };
+#pragma unroll
+      for (int r = 0; r < HELD; ++r) {
+        if (r < R) fold(r, v[r][e]);
+      }
+      for (int r = HELD; r < R; ++r) fold(r, i + e < N ? rows[(long long)r * N + i + e] : 0.f);
+    }
+  }
+  if (MODE == kGlobal) return;
+  __syncthreads();
+  for (int j = threadIdx.x; j < R * G; j += blockDim.x) {
+    const float x = acc[j];
+    if (x != 0.f) atomicAdd(&out[j], x);
   }
 }
 
 // ------------------------------------------------------------------ kernel B
 
-__device__ __forceinline__ int order_key(float f) {
-  const int i = __float_as_int(f);
-  return i >= 0 ? i : i ^ 0x7FFFFFFF;
+// Order-preserving u32 key of a f32, complemented for a min so that both fold
+// with an unsigned max. 0 is left free for "no row"; a NaN takes 0xFFFFFFFF,
+// above every value, so it propagates through min and max alike.
+__device__ __forceinline__ unsigned enc_key(float x, bool is_min) {
+  if (x != x) return 0xFFFFFFFFu;
+  const unsigned b = __float_as_uint(x);
+  const unsigned u = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+  return is_min ? ~u : u;
 }
 
-__device__ __forceinline__ float key_value(int k) {
-  return __int_as_float(k >= 0 ? k : k ^ 0x7FFFFFFF);
+__device__ __forceinline__ float dec_key(unsigned k, bool is_min) {
+  if (k == 0u) return is_min ? INFINITY : -INFINITY;
+  if (k == 0xFFFFFFFFu) return __uint_as_float(0x7FC00000u);
+  const unsigned u = is_min ? ~k : k;
+  return __uint_as_float((u & 0x80000000u) ? (u & 0x7FFFFFFFu) : ~u);
 }
 
-__device__ __forceinline__ int identity_key(bool is_min) {
-  return is_min ? order_key(INFINITY) : order_key(-INFINITY);
-}
-
-// fold one key into *p: min for the first n_min rows, max for the rest
-__device__ __forceinline__ void fold_key(int* p, int key, bool is_min) {
-  if (is_min) {
-    if (key < *p) atomicMin(p, key);
-  } else {
-    if (key > *p) atomicMax(p, key);
-  }
-}
-
-__device__ __forceinline__ int row_key(const float* __restrict__ vals,
-                                       const uint8_t* __restrict__ valid,
-                                       bool live, int k, long long N, long long i,
-                                       bool is_min) {
-  const long long at = (long long)k * N + i;
-  const bool ok = live && valid[at] != 0;
-  return order_key(ok ? vals[at] : (is_min ? kF32Max : -kF32Max));
-}
-
-__global__ void minmax_init_kernel(int* __restrict__ keys, int K, int n_min,
-                                   int G) {
-  const long long total = (long long)K * G;
-  for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < total;
-       j += (long long)gridDim.x * blockDim.x) {
-    keys[j] = identity_key(j / G < n_min);
-  }
-}
-
-__global__ void minmax_smem_kernel(const int* __restrict__ ids,
-                                   const float* __restrict__ vals,
-                                   const uint8_t* __restrict__ valid,
-                                   const uint8_t* __restrict__ mask,
-                                   int* __restrict__ keys, int K, int n_min,
-                                   long long N, int G) {
-  extern __shared__ int local[];  // [K * G]
+template <bool GLOBAL>
+__global__ void __launch_bounds__(kThreads)
+    minmax_kernel(const int* __restrict__ ids, const float* __restrict__ vals,
+                  const uint8_t* __restrict__ valid, const uint8_t* __restrict__ mask,
+                  unsigned* __restrict__ keys, float* __restrict__ out, int K, int n_min,
+                  long long N, int G, int vec, int decode) {
+  extern __shared__ unsigned local[];  // [K, G] unless GLOBAL; 0 = no row yet
+  __shared__ bool last;
   const int kg = K * G;
-  for (int j = threadIdx.x; j < kg; j += blockDim.x)
-    local[j] = identity_key(j / G < n_min);
-  __syncthreads();
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < N;
-       i += stride) {
-    const int g = ids[i];
-    if ((unsigned)g >= (unsigned)G) continue;
-    const bool live = mask[i] != 0;
-    for (int k = 0; k < K; ++k) {
-      const bool is_min = k < n_min;
-      fold_key(&local[k * G + g], row_key(vals, valid, live, k, N, i, is_min), is_min);
-    }
+  unsigned* acc = GLOBAL ? keys : local;
+  if (!GLOBAL) {
+    for (int j = threadIdx.x; j < kg; j += blockDim.x) local[j] = 0u;
   }
   __syncthreads();
-  for (int j = threadIdx.x; j < kg; j += blockDim.x) {
-    const bool is_min = j / G < n_min;
-    const int key = local[j];
-    if (key != identity_key(is_min)) fold_key(&keys[j], key, is_min);
-  }
-}
 
-__global__ void minmax_global_kernel(const int* __restrict__ ids,
-                                     const float* __restrict__ vals,
-                                     const uint8_t* __restrict__ valid,
-                                     const uint8_t* __restrict__ mask,
-                                     int* __restrict__ keys, int K, int n_min,
-                                     long long N, int G) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < N;
-       i += stride) {
-    const int g = ids[i];
-    if ((unsigned)g >= (unsigned)G) continue;
-    const bool live = mask[i] != 0;
-    for (int k = 0; k < K; ++k) {
-      const bool is_min = k < n_min;
-      fold_key(&keys[(long long)k * G + g], row_key(vals, valid, live, k, N, i, is_min),
-               is_min);
+  const int lane = threadIdx.x & 31;
+  const long long step = (long long)gridDim.x * blockDim.x * 4;
+  // four consecutive rows a lane, all loads first, as in kernel A
+  for (long long base = ((long long)blockIdx.x * blockDim.x + (threadIdx.x & ~31)) * 4;
+       base < N; base += step) {
+    const long long i = base + 4 * lane;
+    const bool whole = vec && i + 4 <= N;
+    int g[4];
+    uint8_t live[4];
+    float v[kHeldB][4];
+    uint8_t ok[kHeldB][4];
+    load4(g, ids, i, N, whole, -1);
+    load4(live, mask, i, N, whole, (uint8_t)0);
+#pragma unroll
+    for (int k = 0; k < kHeldB; ++k) {
+      if (k < K) {
+        load4(v[k], vals + (long long)k * N, i, N, whole, 0.f);
+        load4(ok[k], valid + (long long)k * N, i, N, whole, (uint8_t)0);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[k][e] = 0.f, ok[k][e] = 0;
+      }
+    }
+    const bool crowd = crowded((unsigned)g[0] < (unsigned)G ? g[0] : -1);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool inside = (unsigned)g[e] < (unsigned)G;
+      const Peers peers = fold_peers(inside ? g[e] : -1, crowd);
+      const bool leader = inside && peers.leader;
+      auto fold = [&](int k, bool use, float x) {
+        const bool is_min = k < n_min;
+        if (!use) x = is_min ? kF32Max : -kF32Max;
+        const unsigned key = peer_reduce(inside ? enc_key(x, is_min) : 0u, peers,
+                                         [](unsigned a, unsigned b) { return a > b ? a : b; });
+        if (leader) {
+          unsigned* p = acc + (long long)k * G + g[e];
+          if (key > (GLOBAL ? __ldcg(p) : *p)) atomicMax(p, key);
+        }
+      };
+#pragma unroll
+      for (int k = 0; k < kHeldB; ++k) {
+        if (k < K) fold(k, live[e] && ok[k][e], v[k][e]);
+      }
+      for (int k = kHeldB; k < K; ++k) {
+        const long long at = (long long)k * N + i + e;
+        const bool use = i + e < N && live[e] && valid[at] != 0;
+        fold(k, use, use ? vals[at] : 0.f);
+      }
     }
   }
+
+  if (!GLOBAL) {
+    __syncthreads();
+    for (int j = threadIdx.x; j < kg; j += blockDim.x) {
+      const unsigned x = local[j];
+      if (x != 0u && x > __ldcg(keys + j)) atomicMax(keys + j, x);
+    }
+  }
+  if (!decode) return;
+  // the last CTA to finish decodes every key
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(keys + kg, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int j = threadIdx.x; j < kg; j += blockDim.x) out[j] = dec_key(__ldcg(keys + j), j / G < n_min);
 }
 
-__global__ void minmax_decode_kernel(const int* __restrict__ keys,
-                                     float* __restrict__ out, long long total) {
-  for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < total;
+__global__ void minmax_decode_kernel(const unsigned* __restrict__ keys, float* __restrict__ out,
+                                     long long kg, int n_min, int G) {
+  for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < kg;
        j += (long long)gridDim.x * blockDim.x) {
-    out[j] = key_value(keys[j]);
+    out[j] = dec_key(keys[j], j / G < n_min);
   }
+}
+
+// ---------------------------------------------------------------- launches
+
+template <int MT>
+cudaError_t launch_tc(int dev, const DeviceInfo& info, const int* ids, const float* rows,
+                      float* out, int R, long long N, int G, int vec, cudaStream_t s) {
+  const void* fn = (const void*)additive_tc_kernel<MT>;
+  int per_sm = 0;
+  cudaError_t err = resident_ctas(dev, fn, kTcThreads, kTcSmem, &per_sm);
+  if (err != cudaSuccess) return err;
+  const long long chunks = ceil_div(N, kTcChunk);
+  const int grid = clamp_grid(ceil_div(chunks, kTcThreads / 32), (long long)per_sm * info.sms);
+  additive_tc_kernel<MT><<<grid, kTcThreads, kTcSmem, s>>>(ids, rows, out, R, N, G, vec);
+  return cudaSuccess;
+}
+
+template <int MODE, int HELD>
+cudaError_t launch_atomic(int dev, const DeviceInfo& info, const int* ids, const float* rows,
+                          float* out, int R, long long N, int G, int vec, cudaStream_t s) {
+  int grid = 0;
+  int smem = 0;
+  if (MODE == kShared) {
+    smem = R * G * (int)sizeof(float);
+    int per_sm = 0;
+    const cudaError_t err =
+        resident_ctas(dev, (const void*)additive_atomic_kernel<MODE, HELD>, kThreads, smem, &per_sm);
+    if (err != cudaSuccess) return err;
+    grid = resident_grid(N, (long long)per_sm * info.sms);
+  } else {
+    grid = streaming_grid(N, info.sms);
+  }
+  additive_atomic_kernel<MODE, HELD><<<grid, kThreads, (size_t)smem, s>>>(ids, rows, out, R, N, G,
+                                                                          vec);
+  return cudaSuccess;
 }
 
 }  // namespace
 
-extern "C" int additive_groupby(const int* ids, const float* rows, float* out,
-                                int R, long long N, int G, void* stream) {
-  if (R <= 0 || N <= 0 || G <= 0) return (int)cudaGetLastError();
+// mode: 0 tensor, 1 shared, 2 global (the wrapper's regime choice). Zeroes
+// `out` first.
+extern "C" int additive_groupby(const int* ids, const float* rows, float* out, int R,
+                                long long N, int G, int mode, void* stream) {
+  if (R <= 0 || G <= 0) return (int)cudaGetLastError();
   const cudaStream_t s = (cudaStream_t)stream;
-  const DeviceInfo info = device_info();
-  const long long smem = (long long)R * G * sizeof(float);
-  if (smem <= smem_budget(info)) {
-    cudaError_t err = cudaFuncSetAttribute(
-        additive_smem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    int per_sm = 0;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, additive_smem_kernel,
-                                                  kThreads, (size_t)smem);
-    if (per_sm < 1) per_sm = 1;
-    const int grid = privatised_grid(N, (long long)R * G, per_sm * info.sms, info.sms);
-    additive_smem_kernel<<<grid, kThreads, (size_t)smem, s>>>(ids, rows, out, R, N, G);
-  } else {
-    additive_global_kernel<<<streaming_grid(N, info.sms), kThreads, 0, s>>>(ids, rows, out,
-                                                                              R, N, G);
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const DeviceInfo info = device_info(dev);
+  if (mode == kTensor && (R > kTcCols || (G + 15) / 16 > kTcMaxMTiles)) {
+    return (int)cudaErrorInvalidValue;
   }
+  const long long smem = (long long)R * G * sizeof(float);
+  if (mode == kShared && smem > smem_budget(info)) return (int)cudaErrorInvalidValue;
+  if (mode != kTensor && mode != kShared && mode != kGlobal) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaMemsetAsync(out, 0, (size_t)R * G * sizeof(float), s);
+  if (err != cudaSuccess || N <= 0) return (int)err;
+  const int vec = (N % 4 == 0) && ((uintptr_t)ids % 16 == 0) && ((uintptr_t)rows % 16 == 0);
+  if (mode == kTensor) {
+    switch ((G + 15) / 16) {
+      case 1: err = launch_tc<1>(dev, info, ids, rows, out, R, N, G, vec, s); break;
+      case 2: err = launch_tc<2>(dev, info, ids, rows, out, R, N, G, vec, s); break;
+      case 3: err = launch_tc<3>(dev, info, ids, rows, out, R, N, G, vec, s); break;
+      case 4: err = launch_tc<4>(dev, info, ids, rows, out, R, N, G, vec, s); break;
+      case 5: err = launch_tc<5>(dev, info, ids, rows, out, R, N, G, vec, s); break;
+      case 6: err = launch_tc<6>(dev, info, ids, rows, out, R, N, G, vec, s); break;
+      case 7: err = launch_tc<7>(dev, info, ids, rows, out, R, N, G, vec, s); break;
+      default: err = launch_tc<8>(dev, info, ids, rows, out, R, N, G, vec, s); break;
+    }
+  } else if (mode == kShared) {
+    err = R <= 4 ? launch_atomic<kShared, 4>(dev, info, ids, rows, out, R, N, G, vec, s)
+                 : launch_atomic<kShared, 8>(dev, info, ids, rows, out, R, N, G, vec, s);
+  } else {
+    err = R <= 4 ? launch_atomic<kGlobal, 4>(dev, info, ids, rows, out, R, N, G, vec, s)
+                 : launch_atomic<kGlobal, 8>(dev, info, ids, rows, out, R, N, G, vec, s);
+  }
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
+// keys: K*G + 1 words of scratch (the last is the CTA counter); out: [K, G].
+// decode: 1 = the last CTA decodes the keys, 0 = a decode launch of its own
+// (the wrapper's choice, groupby_cuda.minmax_decode).
 extern "C" int minmax_groupby(const int* ids, const float* vals, const uint8_t* valid,
-                              const uint8_t* mask, int* keys, float* out, int K,
-                              int n_min, long long N, int G, void* stream) {
+                              const uint8_t* mask, unsigned* keys, float* out, int K, int n_min,
+                              long long N, int G, int decode, void* stream) {
   if (K <= 0 || G <= 0) return (int)cudaGetLastError();
   const cudaStream_t s = (cudaStream_t)stream;
-  const DeviceInfo info = device_info();
-  const long long total = (long long)K * G;
-  const int flat_grid = streaming_grid(total, info.sms);
-  minmax_init_kernel<<<flat_grid, kThreads, 0, s>>>(keys, K, n_min, G);
-  if (N > 0) {
-    const long long smem = total * sizeof(int);
-    if (smem <= smem_budget(info)) {
-      cudaError_t err = cudaFuncSetAttribute(
-          minmax_smem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return (int)err;
-      int per_sm = 0;
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, minmax_smem_kernel,
-                                                    kThreads, (size_t)smem);
-      if (per_sm < 1) per_sm = 1;
-      const int grid = privatised_grid(N, total, per_sm * info.sms, info.sms);
-      minmax_smem_kernel<<<grid, kThreads, (size_t)smem, s>>>(ids, vals, valid, mask, keys,
-                                                              K, n_min, N, G);
-    } else {
-      minmax_global_kernel<<<streaming_grid(N, info.sms), kThreads, 0, s>>>(
-          ids, vals, valid, mask, keys, K, n_min, N, G);
-    }
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const DeviceInfo info = device_info(dev);
+  const long long kg = (long long)K * G;
+  cudaError_t err = cudaMemsetAsync(keys, 0, (size_t)(kg + 1) * sizeof(unsigned), s);
+  if (err != cudaSuccess) return (int)err;
+  const int vec = (N % 4 == 0) && ((uintptr_t)ids % 16 == 0) && ((uintptr_t)vals % 16 == 0) &&
+                  ((uintptr_t)valid % 4 == 0) && ((uintptr_t)mask % 4 == 0);
+  const long long smem = kg * (long long)sizeof(unsigned);
+  if (smem <= smem_budget(info)) {
+    const void* fn = (const void*)minmax_kernel<false>;
+    int per_sm = 0;
+    err = resident_ctas(dev, fn, kThreads, (int)smem, &per_sm);
+    if (err != cudaSuccess) return (int)err;
+    const int grid = resident_grid(N, (long long)per_sm * info.sms);
+    minmax_kernel<false><<<grid, kThreads, (size_t)smem, s>>>(ids, vals, valid, mask, keys, out,
+                                                              K, n_min, N, G, vec, decode);
+  } else {
+    minmax_kernel<true><<<streaming_grid(N, info.sms), kThreads, 0, s>>>(
+        ids, vals, valid, mask, keys, out, K, n_min, N, G, vec, decode);
   }
-  minmax_decode_kernel<<<flat_grid, kThreads, 0, s>>>(keys, out, total);
+  if (!decode) {
+    minmax_decode_kernel<<<streaming_grid(kg, info.sms), kThreads, 0, s>>>(keys, out, kg, n_min,
+                                                                           G);
+  }
   return (int)cudaGetLastError();
 }

@@ -11,6 +11,31 @@ Two kernels reduce one scanned block into its per-group partial aggregate
   counterpart of the segment_min/segment_max half of
   `parseable_tpu/ops/kernels.py:108 fused_groupby_block`.
 
+Kernel A runs in one of three regimes, chosen per shape by
+`additive_regime(R, G)`; what bounds each on an H100 and what its design
+does about it:
+
+- "tensor" (R <= 8, G <= 128, the one-hot product's tensor-core
+  operations bound under the bytes bound, ceil16(G) * 24 <= 590 (R + 1),
+  and fewer 16-group m-tiles than value rows):
+  the Pallas kernel's formula on the tensor cores with `mma.sync`
+  (bf16 one-hot built in registers, each f32 row split by truncation into
+  three exact bf16 pieces, f32 accumulators). Bound by its mma issue,
+  which grows with G; no atomic in the row loop, so skewed ids cost nothing.
+  NaN and +-inf values take an atomic side path into their own group.
+  `bf16_split` and `additive_groupby_tensor_model` are its arithmetic in
+  plain PyTorch.
+- "shared" (R * G * 4 bytes fit in shared memory): a per-CTA accumulator
+  with warp-adaptive aggregated shared atomics, as many CTAs as the card
+  holds at once.
+- "global": the same atomics straight into the output.
+
+Kernel B folds order-preserving u32 keys with the same warp-adaptive
+aggregation (`__match_any_sync`, then a max over the peers by shuffles),
+one memset and one launch whose last CTA decodes the keys; past
+`MINMAX_DECODE_IN_KERNEL` entries (`minmax_decode(K, G)`) the decode is a
+launch of its own, so that one CTA does not walk them alone.
+
 Beside each wrapper is its plain PyTorch version (`*_plain`). A wrapper
 given CPU tensors computes the plain version; given CUDA tensors it launches
 the kernel or raises. The tests and `chip_smoke.py` compare the two.
@@ -35,6 +60,15 @@ from pathlib import Path
 import torch
 
 F32_MAX = 3.4e38
+SMEM_BUDGET = 200 * 1024  # dynamic shared memory a CTA may ask for (csrc kSmemCap)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+TC_BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
+TC_MAX_ROWS = 8  # value rows of one n-tile
+TC_MAX_GROUPS = 128  # 8 m-tiles of 16 groups
+TC_COLS = 24  # three bf16 pieces x 8 value rows: the product's N
+REGIMES = {"tensor": 0, "shared": 1, "global": 2}
+MINMAX_DECODE_IN_KERNEL = 2048  # key entries kernel B's last CTA decodes itself
+DECODES = {"launch": 0, "kernel": 1}
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "groupby.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -94,9 +128,9 @@ def _load() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.additive_groupby.argtypes = [p, p, p, i, ll, i, p]
+            lib.additive_groupby.argtypes = [p, p, p, i, ll, i, i, p]
             lib.additive_groupby.restype = i
-            lib.minmax_groupby.argtypes = [p, p, p, p, p, p, i, i, ll, i, p]
+            lib.minmax_groupby.argtypes = [p, p, p, p, p, p, i, i, ll, i, i, p]
             lib.minmax_groupby.restype = i
             _lib = lib
         return _lib
@@ -146,8 +180,84 @@ def additive_groupby_plain(group_ids: torch.Tensor, rows: torch.Tensor, num_grou
     return out
 
 
-def additive_groupby(group_ids: torch.Tensor, rows: torch.Tensor, num_groups: int) -> torch.Tensor:
-    """Kernel A: group_ids int32 [N], rows f32 [R, N] -> f32 [R, num_groups]."""
+def additive_regime(r: int, g: int) -> str:
+    """Kernel A's regime for R value rows and G groups (module docstring).
+
+    "tensor" where the one-hot product is cheaper than the atomic regimes:
+    its operations bound under its bytes bound (2 * ceil16(G) * 24
+    operations per row at 989 TFLOP/s against 4 (R + 1) bytes at 3.35 TB/s,
+    i.e. ceil16(G) * 24 <= 590 (R + 1)) and fewer 16-group m-tiles than
+    value rows. The tensor regime's time grows with its m-tiles (three mma
+    and four compares per m-tile and 16 rows) and not with the ids; the
+    shared regime's grows with R (a shared atomic per row and nonzero value)
+    and with collisions. The rule sees the shape only, and it is fitted to
+    spread ids: timed on both sides of its edge on an H100 (PERF.md), it
+    picks the faster regime on uniform ids, or the tensor one where the two
+    are within 2% (R=3 G=32, R=5 G=64). On skewed ids the tensor regime is
+    faster at every shape it fits, by 1.5-2.3x where the rule picks shared
+    (R=3 G=48-64, R=5 G=80-96). "shared" where the [R, G] accumulator fits
+    in shared memory; "global" otherwise."""
+    m_tiles = -(-g // 16)
+    ops_per_byte = TC_BF16_OPS_PER_S / HBM_BYTES_PER_S
+    if (
+        r <= TC_MAX_ROWS
+        and g <= TC_MAX_GROUPS
+        and 2 * 16 * m_tiles * TC_COLS <= ops_per_byte * 4 * (r + 1)
+        and m_tiles < r
+    ):
+        return "tensor"
+    if r * g * 4 <= SMEM_BUDGET:
+        return "shared"
+    return "global"
+
+
+def bf16_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """f32 -> (hi, mid, lo) f32 tensors, split by truncation as the tensor
+    regime splits its rows: hi = x & 0xFFFF0000, mid = trunc16(x - hi),
+    lo = x - hi - mid. hi + mid + lo == x exactly for every finite x; each
+    piece is exact in bf16 for |x| >= 2^-110 (below that, lo drops the bits
+    under 2^-133)."""
+
+    def trunc16(v: torch.Tensor) -> torch.Tensor:
+        return (v.view(torch.int32) & -65536).view(torch.float32)
+
+    hi = trunc16(x)
+    d = x - hi
+    mid = trunc16(d)
+    return hi, mid, d - mid
+
+
+def additive_groupby_tensor_model(
+    group_ids: torch.Tensor, rows: torch.Tensor, num_groups: int
+) -> torch.Tensor:
+    """The tensor regime's arithmetic in plain PyTorch: a bf16 one-hot
+    times each row's three bf16 pieces, summed in f32, the pieces added last;
+    non-finite values enter the product as 0 and their own group directly."""
+    finite = torch.isfinite(rows)
+    pieces = bf16_split(torch.where(finite, rows, 0.0))
+    inside = (group_ids >= 0) & (group_ids < num_groups)
+    onehot = (
+        group_ids[:, None].long() == torch.arange(num_groups, device=rows.device)[None, :]
+    ) & inside[:, None]
+    onehot = onehot.to(torch.bfloat16).to(torch.float32)
+    hi, mid, lo = (p.to(torch.bfloat16).to(torch.float32) @ onehot for p in pieces)
+    out = (lo + mid) + hi
+    if not bool(finite.all()):
+        out += additive_groupby_plain(group_ids, torch.where(finite, 0.0, rows), num_groups)
+    return out
+
+
+def additive_groupby(
+    group_ids: torch.Tensor,
+    rows: torch.Tensor,
+    num_groups: int,
+    *,
+    regime: str | None = None,
+) -> torch.Tensor:
+    """Kernel A: group_ids int32 [N], rows f32 [R, N] -> f32 [R, num_groups].
+
+    `regime` overrides `additive_regime` (tests, timing); a regime the shape
+    does not fit raises."""
     _require(rows.dtype == torch.float32 and rows.dim() == 2, "rows must be f32 [R, N]")
     r, n = rows.shape
     _check_ids(group_ids, n)
@@ -155,16 +265,19 @@ def additive_groupby(group_ids: torch.Tensor, rows: torch.Tensor, num_groups: in
     if not _on_cuda(group_ids, rows):
         return additive_groupby_plain(group_ids, rows, num_groups)
     _require(group_ids.is_contiguous() and rows.is_contiguous(), "inputs must be contiguous")
-    out = torch.zeros((r, num_groups), dtype=torch.float32, device=rows.device)
+    regime = regime or additive_regime(r, num_groups)
+    _require(regime in REGIMES, f"unknown regime {regime!r}")
     if r == 0 or n == 0:
-        return out
+        return torch.zeros((r, num_groups), dtype=torch.float32, device=rows.device)
+    out = torch.empty((r, num_groups), dtype=torch.float32, device=rows.device)  # zeroed by the entry
     lib = _load()
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.additive_groupby(
-            group_ids.data_ptr(), rows.data_ptr(), out.data_ptr(), r, n, num_groups, stream
+            group_ids.data_ptr(), rows.data_ptr(), out.data_ptr(), r, n, num_groups,
+            REGIMES[regime], stream,
         )
-    _check(err, "additive_groupby")
+    _check(err, f"additive_groupby ({regime})")
     LAUNCHES["additive_groupby"] += 1
     return out
 
@@ -200,6 +313,16 @@ def minmax_groupby_plain(
     return mins, maxs
 
 
+def minmax_decode(k: int, g: int) -> str:
+    """Where kernel B decodes its K*G keys: "kernel", in its last CTA, up to
+    MINMAX_DECODE_IN_KERNEL entries (no launch of its own), else "launch", a
+    decode launch over the whole card. Timed both ways on an H100 at K=2
+    (PERF.md): the last CTA wins up to 1,024 entries, the two tie at 4,096,
+    and past that one CTA walking the keys alone loses (by 2.5 us at 8,192
+    entries and 61 us at 131,072)."""
+    return "kernel" if k * g <= MINMAX_DECODE_IN_KERNEL else "launch"
+
+
 def minmax_groupby(
     group_ids: torch.Tensor,
     vals: torch.Tensor,
@@ -207,9 +330,13 @@ def minmax_groupby(
     mask: torch.Tensor,
     num_groups: int,
     n_min: int,
+    *,
+    decode: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel B: group_ids int32 [N], vals f32 [K, N], valid bool [K, N],
-    mask bool [N] -> (min f32 [n_min, G], max f32 [K - n_min, G])."""
+    mask bool [N] -> (min f32 [n_min, G], max f32 [K - n_min, G]).
+
+    `decode` overrides `minmax_decode` (tests, timing)."""
     _require(vals.dtype == torch.float32 and vals.dim() == 2, "vals must be f32 [K, N]")
     k, n = vals.shape
     _check_ids(group_ids, n)
@@ -221,16 +348,18 @@ def minmax_groupby(
     _require(
         all(t.is_contiguous() for t in (group_ids, vals, valid, mask)), "inputs must be contiguous"
     )
+    decode = decode or minmax_decode(k, num_groups)
+    _require(decode in DECODES, f"unknown decode {decode!r}")
     out = torch.empty((k, num_groups), dtype=torch.float32, device=vals.device)
     if k == 0:
         return out[:n_min], out[n_min:]
-    keys = torch.empty((k, num_groups), dtype=torch.int32, device=vals.device)
+    keys = torch.empty(k * num_groups + 1, dtype=torch.int32, device=vals.device)
     lib = _load()
     with torch.cuda.device(vals.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.minmax_groupby(
             group_ids.data_ptr(), vals.data_ptr(), valid.data_ptr(), mask.data_ptr(),
-            keys.data_ptr(), out.data_ptr(), k, n_min, n, num_groups, stream,
+            keys.data_ptr(), out.data_ptr(), k, n_min, n, num_groups, DECODES[decode], stream,
         )
     _check(err, "minmax_groupby")
     LAUNCHES["minmax_groupby"] += 1

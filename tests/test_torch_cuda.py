@@ -123,3 +123,134 @@ def test_cuda_executor_matches_plain_path(cuda, sql):
                 assert a[k] == pytest.approx(b[k], rel=2e-4, abs=1e-6)
             else:
                 assert a[k] == b[k], (k, a[k], b[k])
+
+
+# ------------------------------------------------------------ every regime
+
+A_REGIMES = [
+    ("tensor", 3, 8), ("tensor", 5, 64), ("tensor", 5, 128), ("tensor", 1, 16),
+    ("shared", 5, 2048), ("shared", 3, 8192), ("shared", 3, 64), ("shared", 12, 100),
+    ("global", 5, 65536), ("global", 12, 100),
+]
+
+
+def _rows(rng, ids, r):
+    """Rows as the main path builds them: mask, 0/1 validity, masked sums."""
+    n = ids.shape[0]
+    mask = rng.random(n) < 0.9
+    n_valid = (r - 1) // 2
+    return np.concatenate(
+        [
+            mask[None].astype(np.float32),
+            (rng.random((n_valid, n)) < 0.8).astype(np.float32) * mask,
+            (rng.random((r - 1 - n_valid, n)) * 50_000).astype(np.float32) * mask,
+        ]
+    )
+
+
+def _assert_additive(got, ref, rows):
+    counts = ((rows == 0) | (rows == 1)).all(dim=1)
+    torch.testing.assert_close(got[counts], ref[counts], rtol=0, atol=0)
+    torch.testing.assert_close(got, ref, equal_nan=True, **SUM_TOL)
+
+
+@pytest.mark.parametrize("n", [1 << 16, 70_001])  # 70,001: ragged, unaligned rows
+@pytest.mark.parametrize("regime,r,g", A_REGIMES, ids=[f"{a}-R{b}-G{c}" for a, b, c in A_REGIMES])
+def test_cuda_additive_regime_matches_plain(cuda, regime, r, g, n):
+    rng = np.random.default_rng(g + n)
+    ids = rng.integers(0, g, n).astype(np.int32)
+    rows = torch.from_numpy(_rows(rng, ids, r)).to(cuda)
+    ids = torch.from_numpy(ids).to(cuda)
+    got = G.additive_groupby(ids, rows, g, regime=regime)
+    _assert_additive(got, G.additive_groupby_plain(ids, rows, g), rows)
+
+
+@pytest.mark.parametrize("skew", ["one-group", "five-groups-half-in-one"])
+@pytest.mark.parametrize("regime,r,g", A_REGIMES, ids=[f"{a}-R{b}-G{c}" for a, b, c in A_REGIMES])
+def test_cuda_additive_skewed_ids(cuda, regime, r, g, skew):
+    """The main path's skew: a time-bin key constant in a block, status 200
+    for half of the rows."""
+    rng = np.random.default_rng(5)
+    n = 1 << 17
+    if skew == "one-group":
+        ids = np.full(n, g - 1, dtype=np.int32)
+    else:
+        live = rng.choice(g, 5, replace=False)
+        ids = np.where(rng.random(n) < 0.5, live[0], rng.choice(live, n)).astype(np.int32)
+    rows = torch.from_numpy(_rows(rng, ids, r)).to(cuda)
+    ids = torch.from_numpy(ids).to(cuda)
+    got = G.additive_groupby(ids, rows, g, regime=regime)
+    _assert_additive(got, G.additive_groupby_plain(ids, rows, g), rows)
+
+
+@pytest.mark.parametrize("regime,r,g", A_REGIMES, ids=[f"{a}-R{b}-G{c}" for a, b, c in A_REGIMES])
+def test_cuda_additive_out_of_range_nonfinite_and_f32_max(cuda, regime, r, g):
+    """Ids outside [0, G) dropped; NaN and +-inf stay in their own groups
+    (in the tensor regime a one-hot product would spread them); +-3.4e38
+    values add like any other."""
+    rng = np.random.default_rng(9)
+    n = 1 << 16
+    ids = rng.integers(0, g, n).astype(np.int32)
+    ids[::31] = -1
+    ids[::37] = g
+    ids[::41] = 1 << 30
+    rows = _rows(rng, ids, r)
+    rows[-1, 100], rows[-1, 200], rows[-1, 300] = np.nan, np.inf, -np.inf
+    ids[100], ids[200], ids[300] = 0, (1 % g), (2 % g)
+    rows[-1, 400], rows[-1, 500] = 3.4e38, -3.4e38
+    rows = torch.from_numpy(rows).to(cuda)
+    ids = torch.from_numpy(ids).to(cuda)
+    got = G.additive_groupby(ids, rows, g, regime=regime)
+    ref = G.additive_groupby_plain(ids, rows, g)
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+    assert int(torch.isnan(got).sum()) <= 1  # the NaN poisons its own group only
+    _assert_additive(got, ref, rows)
+
+
+def test_cuda_additive_refuses_a_regime_that_does_not_fit(cuda):
+    ids = torch.zeros(1024, dtype=torch.int32, device=cuda)
+    with pytest.raises(G.KernelError):
+        G.additive_groupby(ids, torch.ones((9, 1024), device=cuda), 8, regime="tensor")
+    with pytest.raises(G.KernelError):
+        G.additive_groupby(ids, torch.ones((5, 1024), device=cuda), 65536, regime="shared")
+
+
+@pytest.mark.parametrize("decode", ["kernel", "launch"])
+@pytest.mark.parametrize("skew", ["uniform", "one-group", "five-groups-half-in-one"])
+@pytest.mark.parametrize("g", [64, 2048, 8192, 65536])  # shared, then global at 65536
+def test_cuda_minmax_regimes_exact(cuda, g, skew, decode):
+    rng = np.random.default_rng(g)
+    n = 1 << 17
+    if skew == "uniform":
+        ids = rng.integers(0, (3 * g) // 4, n)
+    elif skew == "one-group":
+        ids = np.full(n, 1)
+    else:
+        live = rng.choice(g, 5, replace=False)
+        ids = np.where(rng.random(n) < 0.5, live[0], rng.choice(live, n))
+    ids = ids.astype(np.int32)
+    ids[::97], ids[::89] = -1, g
+    vals = (rng.standard_normal((3, n)) * 1000).astype(np.float32)
+    vals[0, ::1001], vals[2, ::1003] = 3.4e38, -3.4e38
+    vals[1, 7], vals[2, 9] = np.inf, -np.inf
+    args = [torch.from_numpy(x).to(cuda) for x in
+            (ids, vals, rng.random((3, n)) < 0.8, rng.random(n) < 0.7)]
+    for n_min in (0, 1, 3):
+        got = G.minmax_groupby(*args, g, n_min, decode=decode)
+        ref = G.minmax_groupby_plain(*args, g, n_min)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n", [1 << 16, 70_001])  # 70,001: ragged, unaligned rows
+@pytest.mark.parametrize("g", [64, 65536])
+def test_cuda_minmax_more_rows_than_registers_hold(cuda, g, n):
+    """K = 10 value rows: the first 4 are held in registers, the rest loaded
+    as they fold."""
+    rng = np.random.default_rng(3)
+    args = [torch.from_numpy(x).to(cuda) for x in (
+        rng.integers(0, g, n).astype(np.int32),
+        (rng.standard_normal((10, n)) * 100).astype(np.float32),
+        rng.random((10, n)) < 0.8, rng.random(n) < 0.9)]
+    for a, b in zip(G.minmax_groupby(*args, g, 4), G.minmax_groupby_plain(*args, g, 4)):
+        assert torch.equal(a, b)

@@ -174,3 +174,120 @@ def test_wrappers_compute_plain_on_cpu_and_check_inputs():
     with pytest.raises(G.KernelError):
         G.minmax_groupby(ids, torch.ones((2, 8)), torch.ones((1, 8), dtype=torch.bool),
                          torch.ones(8, dtype=torch.bool), 4, 1)
+
+
+# ------------------------------------------------- kernel A's tensor regime
+
+
+def _split_inputs() -> np.ndarray:
+    """Seeded values over the lake's ranges and beyond, plus 0, -0,
+    +-F32_MAX, the smallest normal and subnormals."""
+    rng = np.random.default_rng(17)
+    f32 = np.finfo(np.float32)
+    return np.concatenate(
+        [
+            (rng.random(4096) * 50_000).astype(np.float32),  # bytes
+            (rng.random(4096) * 500).astype(np.float32),  # latency_ms
+            (rng.standard_normal(4096) * 10.0 ** rng.integers(-30, 30, 4096)).astype(np.float32),
+            rng.integers(0, 2**31, 4096).astype(np.uint32).view(np.float32),  # any bits
+            np.array([0.0, -0.0, f32.max, -f32.max, 3.4e38, -3.4e38, f32.tiny, 1.0, -1.0],
+                     np.float32),
+            np.array([1e-45, -1e-45, 1e-40, 2.0**-130, 2.0**-110], np.float32),  # subnormals
+        ]
+    )
+
+
+def test_bf16_split_reconstructs_every_f32():
+    """hi + mid + lo == x exactly (f32 arithmetic), in either order; every
+    piece is exact in bf16 for |x| >= 2^-110, and below that what lo loses is
+    under 2^-133; a rounding split would overflow at 3.4e38."""
+    x = torch.from_numpy(_split_inputs())
+    x = x[torch.isfinite(x)]
+    hi, mid, lo = G.bf16_split(x)
+    assert torch.equal(hi + mid + lo, x)
+    assert torch.equal(hi + (mid + lo), x)
+    normal = x.abs() >= 2.0**-110
+    for piece in (hi, mid, lo):
+        assert torch.isfinite(piece).all()
+        as_bf16 = piece.to(torch.bfloat16).to(torch.float32)
+        assert torch.equal(as_bf16[normal], piece[normal])
+        assert ((as_bf16 - piece).abs() < 2.0**-133).all()
+    assert torch.isinf(torch.tensor([3.4e38]).to(torch.bfloat16)).all()
+
+
+def _pallas_case(seed: int, n: int, g: int, r: int, span: int | None = None):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, span or g, n).astype(np.int32)
+    mask = rng.random(n) < 0.9
+    n_valid = (r - 1) // 2
+    rows = np.concatenate(
+        [
+            mask[None].astype(np.float32),
+            (rng.random((n_valid, n)) < 0.8).astype(np.float32) * mask,
+            (rng.random((r - 1 - n_valid, n)) * 50_000).astype(np.float32) * mask,
+        ]
+    )
+    return ids, rows, 1 + n_valid
+
+
+# (n, g, r, id span): the main path's three tensor shapes, G = 128, and skewed ids
+TENSOR_CASES = [(4096, 8, 3, None), (4096, 64, 3, None), (6144, 64, 5, None),
+                (2048, 128, 5, None), (4096, 64, 5, 5)]
+
+
+@pytest.mark.parametrize("case", TENSOR_CASES, ids=[f"n{c[0]}-g{c[1]}-r{c[2]}" for c in TENSOR_CASES])
+def test_tensor_model_matches_pallas_interpret(case):
+    """The tensor regime's formula (bf16 one-hot, rows split into three bf16
+    pieces, f32 accumulate) against the Pallas kernel in interpret mode:
+    counts exact, sums rel 2e-4."""
+    n, g, r, span = case
+    ids, rows, counts = _pallas_case(n + g, n, g, r, span)
+    ref = np.asarray(
+        additive_groupby_pallas(jnp.asarray(ids), jnp.asarray(rows), g, interpret=True)
+    )
+    got = G.additive_groupby_tensor_model(torch.from_numpy(ids), torch.from_numpy(rows), g).numpy()
+    np.testing.assert_array_equal(got[:counts], ref[:counts])
+    np.testing.assert_allclose(got[counts:], ref[counts:], **SUM_TOL)
+
+
+def test_tensor_model_confines_nonfinite_values():
+    """NaN and +-inf enter the product as 0 and their own group directly, as
+    index_add_ confines them; a plain one-hot product would spread a NaN to
+    every group of its row."""
+    ids, rows, counts = _pallas_case(3, 4096, 64, 5)
+    ids[[10, 11, 12]] = [0, 1, 2]
+    rows[-1, [10, 11, 12]] = [np.nan, np.inf, -np.inf]
+    t_ids, t_rows = torch.from_numpy(ids), torch.from_numpy(rows)
+    got = G.additive_groupby_tensor_model(t_ids, t_rows, 64)
+    ref = G.additive_groupby_plain(t_ids, t_rows, 64)
+    assert torch.isnan(got[-1, 0]) and got[-1, 1] == np.inf and got[-1, 2] == -np.inf
+    assert int(torch.isnan(got).sum()) == 1
+    torch.testing.assert_close(got, ref, equal_nan=True, **SUM_TOL)
+
+
+# (R, G, regime): tensor where R <= 8, G <= 128, ceil16(G) * 24 <= 590 (R + 1)
+# and ceil16(G) / 16 < R; shared where R * G * 4 <= 200 KB; else global
+REGIME_RULE = [
+    (3, 8, "tensor"), (3, 64, "shared"), (5, 64, "tensor"),  # regex_filter, minmax, groupby
+    (3, 8192, "shared"),  # topk_multicol
+    (3, 32, "tensor"), (3, 48, "shared"), (5, 80, "shared"), (5, 64, "tensor"),
+    (5, 128, "shared"), (8, 112, "tensor"), (8, 128, "shared"), (1, 16, "shared"),
+    (2, 16, "tensor"), (9, 8, "shared"), (5, 2048, "shared"), (5, 10240, "shared"),
+    (5, 10241, "global"), (5, 65536, "global"),
+]
+
+
+@pytest.mark.parametrize("r,g,regime", REGIME_RULE, ids=[f"R{a}-G{b}" for a, b, _ in REGIME_RULE])
+def test_additive_regime_rule(r, g, regime):
+    assert G.additive_regime(r, g) == regime
+
+
+# (K, G, decode): kernel B's last CTA decodes up to 2048 key entries itself,
+# a decode launch of its own takes more
+DECODE_RULE = [(2, 64, "kernel"), (3, 64, "kernel"), (2, 1024, "kernel"), (2, 1025, "launch"),
+               (2, 4096, "launch"), (2, 65536, "launch"), (10, 204, "kernel"), (10, 205, "launch")]
+
+
+@pytest.mark.parametrize("k,g,decode", DECODE_RULE, ids=[f"K{a}-G{b}" for a, b, _ in DECODE_RULE])
+def test_minmax_decode_rule(k, g, decode):
+    assert G.minmax_decode(k, g) == decode
