@@ -600,6 +600,372 @@ def drive_main_path(p, device=None) -> tuple[dict, dict, dict]:
 
 
 
+# ------------------------------------------------------------------ server
+
+N_EVENTS = 1 << 20  # events sent over HTTP in phase 6
+EVENTS_PER_REQUEST = 1 << 14
+CLIENTS = 4
+EXTRA_EVENTS = 1000  # a last batch the short sync ticks must move into the lake
+SERVER_QUERIES = {
+    "count": "SELECT count(*) AS c FROM {stream}",
+    "status": (
+        "SELECT status, count(*) AS c, sum(bytes) AS b, min(latency_ms) AS mn, "
+        "max(bytes) AS mx FROM {stream} GROUP BY status"
+    ),
+    "regex_filter": QUERIES["regex_filter"],
+    # `ORDER BY 4` would sort by the constant 4 in both packages (neither
+    # resolves ordinals), so the sum is named
+    "topk_multicol": QUERIES["topk_multicol"],
+}
+
+
+def make_events(np, rng, n: int) -> dict:
+    """`n` events of `make_minute`'s access-log profile (the same columns and
+    value sets, numbers as JSON numbers), as numpy columns; the server
+    stamps p_timestamp on arrival."""
+    hosts = np.array([f"10.0.{i}.{j}" for i in range(4) for j in range(8)])
+    paths = np.array([f"/api/v1/resource{i}" for i in range(64)])
+    messages = np.array(
+        [f"request completed in {d}ms" for d in range(0, 400, 25)]
+        + [f"error: upstream timeout after {d}ms" for d in range(0, 400, 50)]
+        + [f"slow query warning threshold {d}" for d in range(0, 200, 25)]
+        + ["connection reset by peer", "error: permission denied", "cache miss"]
+    )
+    statuses = np.array([200, 200, 200, 200, 301, 404, 500, 503])
+    methods = np.array(["GET", "GET", "GET", "POST", "PUT", "DELETE"])
+    return {
+        "host": hosts[rng.integers(0, len(hosts), n)],
+        "method": methods[rng.integers(0, len(methods), n)],
+        "path": paths[rng.integers(0, len(paths), n)],
+        "message": messages[rng.integers(0, len(messages), n)],
+        "status": statuses[rng.integers(0, len(statuses), n)],
+        "bytes": rng.integers(100, 50_000, n),
+        "latency_ms": rng.random(n) * 500,
+    }
+
+
+def request_bodies(cols: dict, per_request: int) -> list[bytes]:
+    """JSON array bodies of `per_request` events each."""
+    names = list(cols)
+    lists = [cols[c].tolist() for c in names]
+    n = len(lists[0])
+    return [
+        json.dumps([dict(zip(names, row)) for row in zip(*(l[o : o + per_request] for l in lists))]).encode()
+        for o in range(0, n, per_request)
+    ]
+
+
+def oracle(np, cols: dict) -> dict:
+    """The answers of SERVER_QUERIES over the events sent, in numpy (f64)."""
+    status = cols["status"].astype(np.float64)
+    nbytes = cols["bytes"].astype(np.float64)
+    lat = cols["latency_ms"]
+    out = {"count": {(): {"c": len(status)}}, "status": {}, "regex_filter": {}, "topk_multicol": {}}
+    err = np.char.find(cols["message"].astype(str), "error") >= 0
+    for s in np.unique(status):
+        m = status == s
+        out["status"][(s,)] = {
+            "c": int(m.sum()), "b": float(nbytes[m].sum()),
+            "mn": float(lat[m].min()), "mx": float(nbytes[m].max()),
+        }
+        me = m & err
+        if me.any():
+            out["regex_filter"][(s,)] = {"c": int(me.sum()), "l": float(lat[me].mean())}
+    keys = np.char.add(np.char.add(cols["path"].astype(str), "|"), cols["host"].astype(str))
+    uniq, inv = np.unique(keys, return_inverse=True)
+    sums = np.bincount(inv, weights=nbytes)
+    counts = np.bincount(inv)
+    for i in np.argsort(-sums)[:10]:
+        path, host = uniq[i].split("|")
+        out["topk_multicol"][(path, host)] = {"c": int(counts[i]), "s": float(sums[i])}
+    return out
+
+
+def close(a: float, b: float) -> bool:
+    return abs(a - b) <= ABS_TOL + REL_TOL * abs(b)
+
+
+def check_against_oracle(qname: str, records: list[dict], want: dict, where: str) -> None:
+    """Counts exact, floats within REL_TOL/ABS_TOL; the top-10 by sum must
+    hold the oracle's ten sums in descending order (keys may swap only
+    between sums equal within tolerance)."""
+    key_cols = {"count": (), "status": ("status",), "regex_filter": ("status",),
+                "topk_multicol": ("path", "host")}[qname]
+    check(len(records) == len(want), f"{where} {qname}: {len(records)} rows, oracle {len(want)}")
+    if qname == "topk_multicol":
+        got_s = [r["s"] for r in records]
+        check(got_s == sorted(got_s, reverse=True), f"{where} {qname}: not sorted by s desc")
+        want_s = sorted((v["s"] for v in want.values()), reverse=True)
+        check(all(close(a, b) for a, b in zip(got_s, want_s)), f"{where} {qname}: top sums differ")
+    for r in records:
+        key = tuple(r[c] for c in key_cols)
+        if qname == "topk_multicol" and key not in want:
+            continue  # a tie at rank 10, the sum already checked above
+        check(key in want, f"{where} {qname}: group {key} not in the oracle")
+        for col, v in want[key].items():
+            ok = r[col] == v if isinstance(v, int) else close(r[col], v)
+            check(ok, f"{where} {qname} {key}.{col}: {r[col]} vs oracle {v}")
+
+
+def same_records(name: str, a: list[dict], b: list[dict]) -> None:
+    import pyarrow as pa
+
+    same_result(name, pa.Table.from_pylist(a), pa.Table.from_pylist(b))
+
+
+def http_call(port: int, method: str, path: str, body: bytes | None = None, headers=None):
+    import base64
+    import urllib.error
+    import urllib.request
+
+    auth = "Basic " + base64.b64encode(b"admin:admin").decode()
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=body, method=method,
+        headers={"Authorization": auth, "Content-Type": "application/json", **(headers or {})},
+    )
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, json.loads(r.read() or b"null")
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"null")
+
+
+def http_query(port: int, sql: str) -> tuple[dict, float]:
+    body = json.dumps(
+        {"query": sql, "startTime": "10m", "endTime": "now", "fields": True}
+    ).encode()
+    t = time.perf_counter()
+    status, out = http_call(port, "POST", "/api/v1/query", body)
+    wall = time.perf_counter() - t
+    check(status == 200, f"query {sql!r}: HTTP {status} {out}")
+    return out, wall
+
+
+def send_events(port: int, bodies: list[bytes], clients: int) -> tuple[int, list[float], float]:
+    """POST every body to /api/v1/ingest from `clients` threads; returns the
+    acked row count, each request's ack latency and the wall time."""
+    import threading
+
+    acked: list[int] = []
+    lat: list[float] = []
+    errors: list[str] = []
+    lock = threading.Lock()
+
+    def client(mine: list[bytes]) -> None:
+        for body in mine:
+            t = time.perf_counter()
+            status, out = http_call(port, "POST", "/api/v1/ingest", body, {"X-P-Stream": STREAM})
+            dt = time.perf_counter() - t
+            with lock:
+                if status != 200:
+                    errors.append(f"HTTP {status} {out}")
+                    return
+                acked.append(int(out["message"].split()[1]))
+                lat.append(dt)
+
+    threads = [threading.Thread(target=client, args=(bodies[i::clients],)) for i in range(clients)]
+    t = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    wall = time.perf_counter() - t
+    check(not errors, f"ingest failed: {errors[:3]}")
+    check(len(acked) == len(bodies), f"{len(acked)} of {len(bodies)} ingest requests acked")
+    return sum(acked), lat, wall
+
+
+def server_queries(torch, G, server, want: dict, where: str, profile_status: bool) -> dict:
+    """SERVER_QUERIES over HTTP, cold then warm: each answer against the
+    oracle and against the port's CPU engine over the same directories;
+    every GPU answer stays on the device. Optionally one more warm run of
+    the status query under torch.profiler for the device's idle share."""
+    from parseable_tpu_torch.query.session import QuerySession
+
+    walls: dict[str, dict] = {}
+    for qname, sql in SERVER_QUERIES.items():
+        text = sql.format(stream=STREAM)
+        before = dict(G.LAUNCHES)
+        for run in ("cold", "warm"):
+            out, wall = http_query(server.port, text)
+            walls.setdefault(qname, {})[run] = wall
+            routes = out["stats"]["device_routes"]
+            check(routes["cpu_fallback"] == 0, f"{where} {qname}: cpu_fallback {routes}")
+            check(routes["device_cold"] > 0, f"{where} {qname}: no block on the device {routes}")
+            check(out["stats"]["scan_errors"] == 0, f"{where} {qname}: scan errors")
+            check_against_oracle(qname, out["records"], want[qname], where)
+            log(
+                f"phase 6 {where} {qname} {run}: HTTP wall {wall * 1e3:.3f} ms, "
+                f"{out['stats']['rows_scanned']} rows scanned ({out['stats']['staging_rows']} "
+                f"from staging, {out['stats']['files_total']} lake files), stages "
+                f"{out['stats']['stages']} routes {routes}"
+            )
+        cpu = QuerySession(server.state.p, engine="cpu").query(text, "10m", "now")
+        same_records(f"{where} {qname}", out["records"], cpu.to_json_rows())
+        delta = {k: G.LAUNCHES[k] - before[k] for k in G.LAUNCHES}
+        if profile_status:  # on the card
+            check(delta["additive_groupby"] > 0, f"{where} {qname}: kernel A never launched")
+            if qname == "status":
+                check(delta["minmax_groupby"] > 0, f"{where} {qname}: kernel B never launched")
+        log(f"phase 6 {where} {qname}: == oracle == cpu engine, launches {delta}")
+    if profile_status:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, wall = http_query(server.port, SERVER_QUERIES["status"].format(stream=STREAM))
+            torch.cuda.synchronize()
+        busy_us = sum(
+            getattr(ev, "self_device_time_total", 0.0)
+            for ev in prof.key_averages()
+            if str(getattr(ev, "device_type", "")).endswith("CUDA")
+        )
+        if busy_us:
+            log(
+                f"phase 6 {where} status profile: HTTP wall {wall * 1e3:.3f} ms, device busy "
+                f"{busy_us / 1e3:.3f} ms, idle share {1 - busy_us / 1e3 / (wall * 1e3):.4f}"
+            )
+        else:
+            log(f"phase 6 {where} status profile: the profiler saw no device time (not measured)")
+    return walls
+
+
+def boot_module(work: Path, acked: int) -> None:
+    """`python -m parseable_tpu_torch.server` on the phase's directories:
+    it must answer liveness and one query, then stop on SIGTERM."""
+    import os
+    import signal
+    import socket
+    import urllib.request
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ, "P_ADDR": f"127.0.0.1:{port}",
+           "P_STAGING_DIR": str(work / "staging"), "P_FS_DIR": str(work / "data")}
+    env.pop("P_QUERY_ENGINE", None)
+    t = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "parseable_tpu_torch.server"], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    try:
+        live = False
+        while time.perf_counter() - t < 180 and proc.poll() is None:
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}/api/v1/liveness", timeout=5) as r:
+                    live = r.status == 200
+            except OSError:
+                time.sleep(0.5)
+                continue
+            break
+        check(live, f"python -m parseable_tpu_torch.server never answered liveness "
+                    f"(exit {proc.poll()})")
+        up = time.perf_counter() - t
+        out, wall = http_query(port, SERVER_QUERIES["count"].format(stream=STREAM))
+        check(out["records"] == [{"c": acked}], f"module server count {out['records']} != {acked}")
+        check(out["stats"]["device_routes"]["cpu_fallback"] == 0, "module server fell back")
+        proc.send_signal(signal.SIGTERM)
+        code = proc.wait(timeout=120)
+        check(code == 0, f"module server exited {code}")
+        log(f"phase 6 module: python -m parseable_tpu_torch.server live in {up:.2f} s, "
+            f"count(*) {acked} in {wall * 1e3:.3f} ms, stopped with exit 0")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        tail = proc.stdout.read() if proc.stdout else ""
+        if proc.returncode not in (0, None):
+            log(tail[-4000:])
+
+
+def drive_server(torch, G, seed: int, device=None) -> dict:
+    """Phase 6: the port's HTTP server on the card. 2^20 access-log events
+    go in over HTTP; the queries are answered from staging, then, after a
+    stop (flush, convert, upload) and a start on the same directories, from
+    the lake, then a last batch is moved into the lake by short sync ticks,
+    and the server module boots once (on the card only). Returns the
+    kernels' launch counts of the phase. `device` as in `drive_main_path`."""
+    import numpy as np
+
+    from parseable_tpu_torch.config import Options, StorageOptions
+    from parseable_tpu_torch.server.app import start_server
+
+    work = ROOT / "build" / "smoke_server"
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        rng = np.random.default_rng(seed + 1)
+        cols = make_events(np, rng, N_EVENTS)
+        t = time.perf_counter()
+        bodies = request_bodies(cols, EVENTS_PER_REQUEST)
+        want = oracle(np, cols)
+        log(f"phase 6 events: {N_EVENTS} in {len(bodies)} bodies of {EVENTS_PER_REQUEST}, "
+            f"{sum(map(len, bodies))} bytes, encoded in {time.perf_counter() - t:.2f} s")
+
+        def options(sync_secs: int) -> Options:
+            opts = Options()
+            opts.address = "127.0.0.1:0"
+            opts.local_staging_path = work / "staging"
+            opts.query_engine = "gpu"
+            opts.local_sync_interval_secs = sync_secs
+            opts.upload_interval_secs = sync_secs
+            return opts
+
+        storage = StorageOptions(root=work / "data")
+        for name in G.LAUNCHES:
+            G.LAUNCHES[name] = 0
+        # first start: ticks longer than the phase, so the rows stay staged
+        on_card = device is None
+        server = start_server(options(3600), storage, device)
+        try:
+            acked, lat, wall = send_events(server.port, bodies, CLIENTS)
+            check(acked == N_EVENTS, f"{acked} events acked of {N_EVENTS}")
+            lat_ms = np.array(lat) * 1e3
+            log(
+                f"phase 6 ingest: {acked} events acked in {wall:.3f} s = {acked / wall:.6g} rows/s "
+                f"({CLIENTS} clients), ack latency p50 {np.percentile(lat_ms, 50):.3f} ms "
+                f"p99 {np.percentile(lat_ms, 99):.3f} ms max {lat_ms.max():.3f} ms"
+            )
+            staging_walls = server_queries(torch, G, server, want, "staging", on_card)
+        finally:
+            t = time.perf_counter()
+            server.stop()
+        log(f"phase 6 restart: stop (flush, convert, upload) {time.perf_counter() - t:.3f} s")
+        staged = [f for f in (work / "staging" / STREAM).iterdir()
+                  if f.name.endswith((".arrows", ".parquet"))]
+        check(not staged, f"staging files left after stop: {staged[:3]}")
+        # second start: short ticks
+        t = time.perf_counter()
+        server = start_server(options(1), storage, device)
+        log(f"phase 6 restart: start {time.perf_counter() - t:.3f} s")
+        try:
+            lake_walls = server_queries(torch, G, server, want, "lake", on_card)
+            extra = make_events(np, rng, EXTRA_EVENTS)
+            more, _, _ = send_events(server.port, request_bodies(extra, EXTRA_EVENTS), 1)
+            acked += more
+            t = time.perf_counter()
+            while True:
+                out, _ = http_query(server.port, SERVER_QUERIES["count"].format(stream=STREAM))
+                check(out["records"] == [{"c": acked}], f"count {out['records']} != {acked}")
+                if out["stats"]["staging_rows"] == 0:
+                    break
+                check(time.perf_counter() - t < 60, "the sync ticks never moved the last batch")
+                time.sleep(0.5)
+            log(f"phase 6 sync ticks: {more} more events acked and in the lake after "
+                f"{time.perf_counter() - t:.2f} s, count(*) {acked}")
+        finally:
+            server.stop()
+        launches = dict(G.LAUNCHES)
+        log(f"phase 6 launches on the server path: {launches}")
+        log("phase 6 HTTP query wall s: " + json.dumps({"staging": staging_walls, "lake": lake_walls}))
+        if on_card:
+            for name, n in launches.items():
+                check(n > 0, f"{name} was never launched on the server path")
+            boot_module(work, acked)
+        return launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -657,6 +1023,9 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+    # -- phase 6: the HTTP server, ingest and queries, on the card
+    server_launches = drive_server(torch, G, args.seed)
+
     # -- phase 5: each kernel at the shapes the main path gave it, on one
     # block's real inputs and on uniform inputs of the same shape
     report = []
@@ -690,6 +1059,7 @@ def main() -> int:
                 "source": "parseable_tpu_torch/csrc/groupby.cu",
                 "replaces": replaces[name],
                 "launches": launches[name],
+                "launches_server": server_launches[name],
                 "max_abs_err": top["max_abs_err"],
                 "ms": top["ms"],
                 "plain_ms": top["plain_ms"],

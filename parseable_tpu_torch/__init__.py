@@ -1,11 +1,14 @@
 """parseable_tpu_torch — the observability data lake on PyTorch and CUDA.
 
-A port of the JAX package `parseable_tpu/` to one NVIDIA H100. This slice
-covers the path users run most: Parquet files committed to the local lake
-(manifest + snapshot catalog), and a time-bounded `GROUP BY` aggregate over
-them answered by `QuerySession(p).query(...)`. Each scanned block is
-encoded on the host, shipped to the card in one copy, masked and grouped
-with plain tensor code, and reduced by the hand-written group-by kernels in
+A port of the JAX package `parseable_tpu/` to one NVIDIA H100. It covers
+the path users run most, as one node: JSON events in over HTTP
+(`server/app.py`) -> flatten and schema inference (`event/`) -> Arrow-IPC
+staging (`streams.py`, `staging/`) -> Parquet -> the local lake's
+manifest + snapshot catalog (`core.py`), and a time-bounded `GROUP BY`
+aggregate over staging and the lake answered by
+`QuerySession(p).query(...)`. Each scanned block is encoded on the host,
+shipped to the card in one copy, masked and grouped with plain tensor
+code, and reduced by the hand-written group-by kernels in
 `csrc/groupby.cu` (see `ops/groupby_cuda.py`).
 
 Module paths and public names follow the JAX package, so the counterpart of

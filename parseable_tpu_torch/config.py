@@ -1,12 +1,15 @@
-"""Options for the port, trimmed to the fields this slice reads.
+"""Options / CLI configuration for the port.
 
-Field names, environment variables and defaults follow
-`parseable_tpu/config.py`, except `query_engine`, whose default is "gpu":
-entry points run on the card unless the caller asks for the CPU.
+Counterpart of `parseable_tpu/config.py`, trimmed to the fields the port
+reads. Field names, environment variables and defaults follow the JAX
+package, except `query_engine`, whose default is "gpu": entry points run on
+the card unless the caller asks for the CPU. The port runs in the JAX
+package's `all` mode only (one node ingests and answers queries).
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 import uuid
 from dataclasses import dataclass, field
@@ -22,6 +25,13 @@ def _env(name: str, default: str | None = None) -> str | None:
 def _env_int(name: str, default: int) -> int:
     v = _env(name)
     return int(v) if v is not None else default
+
+
+def _env_bool(name: str, default: bool) -> bool:
+    v = _env(name)
+    if v is None:
+        return default
+    return v.lower() in ("1", "true", "yes", "on")
 
 
 class Compression(str, Enum):
@@ -42,17 +52,37 @@ class Compression(str, Enum):
 
 @dataclass
 class Options:
-    """Server options read by the query slice."""
+    """Server options."""
 
+    # --- server ---------------------------------------------------------------
+    address: str = field(default_factory=lambda: _env("P_ADDR", "0.0.0.0:8000"))
+    username: str = field(default_factory=lambda: _env("P_USERNAME", "admin"))
+    password: str = field(default_factory=lambda: _env("P_PASSWORD", "admin"))
+
+    # --- staging --------------------------------------------------------------
     local_staging_path: Path = field(
         default_factory=lambda: Path(_env("P_STAGING_DIR", "./staging"))
     )
+    # rows buffered in the arrow writer before a disk write
+    disk_write_batch_rows: int = field(
+        default_factory=lambda: _env_int("P_DISK_WRITE_BATCH_ROWS", 10_000)
+    )
+    max_arrow_files_per_parquet: int = field(
+        default_factory=lambda: _env_int("P_MAX_ARROW_FILES_PER_PARQUET", 20)
+    )
+    enable_memory_staging: bool = field(
+        default_factory=lambda: _env_bool("P_ENABLE_MEMORY_STAGING", False)
+    )
+
+    # --- parquet --------------------------------------------------------------
     row_group_size: int = field(
         default_factory=lambda: _env_int("P_PARQUET_ROW_GROUP_SIZE", 262_144)
     )
     parquet_compression: Compression = field(
         default_factory=lambda: Compression(_env("P_PARQUET_COMPRESSION_ALGO", "lz4_raw"))
     )
+
+    # --- query ----------------------------------------------------------------
     query_timeout_secs: int = field(default_factory=lambda: _env_int("P_QUERY_TIMEOUT", 300))
     query_memory_limit_bytes: int | None = field(
         default_factory=lambda: (
@@ -62,8 +92,35 @@ class Options:
     # "gpu" runs aggregates through the CUDA group-by kernels; "cpu" is the
     # pyarrow engine (the oracle the GPU engine is held against)
     query_engine: str = field(default_factory=lambda: _env("P_QUERY_ENGINE", "gpu"))
+    # threads answering HTTP queries
+    query_workers: int = field(
+        default_factory=lambda: _env_int("P_QUERY_WORKERS", min(8, os.cpu_count() or 1))
+    )
     # scan tables coalesce into device blocks of at least this many rows
     device_block_rows: int = field(default_factory=lambda: _env_int("P_TPU_BLOCK_ROWS", 1 << 20))
+
+    # --- ingest ---------------------------------------------------------------
+    max_event_payload_bytes: int = field(
+        default_factory=lambda: _env_int("P_MAX_EVENT_PAYLOAD_SIZE", 10 * 1024 * 1024)
+    )
+    event_flatten_level: int = field(default_factory=lambda: _env_int("P_MAX_FLATTEN_LEVEL", 10))
+    # hours a time-partitioned event may lag the first one seen
+    event_max_chunk_age: int = field(default_factory=lambda: _env_int("P_EVENT_MAX_CHUNK_AGE", 24))
+    dataset_fields_allowed_limit: int = field(
+        default_factory=lambda: _env_int("P_DATASET_FIELD_COUNT_LIMIT", 250)
+    )
+
+    # --- sync -----------------------------------------------------------------
+    local_sync_interval_secs: int = field(
+        default_factory=lambda: _env_int("P_LOCAL_SYNC_INTERVAL", 60)
+    )
+    upload_interval_secs: int = field(
+        default_factory=lambda: _env_int("P_STORAGE_UPLOAD_INTERVAL", 30)
+    )
+    # workers on the sync pool: arrow-group -> parquet compaction jobs
+    sync_workers: int = field(
+        default_factory=lambda: _env_int("P_SYNC_WORKERS", min(8, os.cpu_count() or 1))
+    )
 
     def staging_dir(self) -> Path:
         self.local_staging_path.mkdir(parents=True, exist_ok=True)
@@ -72,7 +129,7 @@ class Options:
 
 @dataclass
 class StorageOptions:
-    """Storage backend; this slice supports `local-store` only."""
+    """Storage backend; the port supports `local-store` only."""
 
     backend: str = "local-store"
     root: Path = field(default_factory=lambda: Path(_env("P_FS_DIR", "./data")))
@@ -80,3 +137,34 @@ class StorageOptions:
 
 def generate_node_id() -> str:
     return uuid.uuid4().hex
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="parseable-tpu-torch",
+        description="observability data lake on PyTorch/CUDA (parseable-compatible API)",
+    )
+    sub = p.add_subparsers(dest="backend")
+    sp = sub.add_parser("local-store")
+    sp.add_argument("--fs-dir", default=None, help="root dir for local-store")
+    p.add_argument("--address", default=None)
+    p.add_argument("--staging-dir", default=None)
+    p.add_argument("--query-engine", default=None, choices=["gpu", "cpu"])
+    return p
+
+
+def parse_cli(argv: list[str] | None = None) -> tuple[Options, StorageOptions]:
+    args = build_parser().parse_args(argv)
+    opts = Options()
+    if args.address:
+        opts.address = args.address
+    if args.staging_dir:
+        opts.local_staging_path = Path(args.staging_dir)
+    if args.query_engine:
+        opts.query_engine = args.query_engine
+    storage = StorageOptions()
+    if args.backend:
+        storage.backend = args.backend
+        if args.fs_dir:
+            storage.root = Path(args.fs_dir)
+    return opts, storage

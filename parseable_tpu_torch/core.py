@@ -1,18 +1,30 @@
 """Core service state: options + storage + metastore + stream registry.
 
-Counterpart of `parseable_tpu/core.py` (`Parseable`), trimmed to the query
-slice: stream creation and bootstrap from storage, and the upload tick that
-moves staged Parquet into the lake and commits it to the manifest/snapshot
-catalog exactly as the JAX package does. Ingest, the upload pool, the
-enrichment queue and distributed (per-ingestor) snapshots are later slices;
-this node runs in `all` mode and writes the base `.stream.json`.
+Counterpart of `parseable_tpu/core.py` (`Parseable`), for one node in the
+JAX package's `all` mode (it writes the base `.stream.json`). It owns the
+staging -> parquet -> object store -> catalog pipeline, as the JAX package
+does:
+
+- stream creation, bootstrap from storage and schema commit;
+- `local_sync` (flush + compaction on the sync pool) and its pipelined
+  variant `sync_cycle` (each parquet uploaded as it lands);
+- `upload_files_from_staging` + `update_snapshot`: the manifest/snapshot
+  commit, byte-compatible with the JAX package's lake;
+- `shutdown`: flush, convert, upload.
+
+The upload pool, the enrichment queue, remote backends and distributed
+(per-ingestor) snapshots are later slices.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import re
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from datetime import UTC, datetime, timedelta
+from pathlib import Path
 
 import pyarrow as pa
 import pyarrow.parquet as pq
@@ -24,7 +36,8 @@ from parseable_tpu_torch.catalog import (
     create_from_parquet_file,
     partition_path,
 )
-from parseable_tpu_torch.config import Options, StorageOptions
+from parseable_tpu_torch.config import Options, StorageOptions, generate_node_id
+from parseable_tpu_torch.event.format import LogSource, SchemaVersion
 from parseable_tpu_torch.metastore import MetastoreError, ObjectStoreMetastore
 from parseable_tpu_torch.storage import ObjectStoreFormat, rfc3339_now
 from parseable_tpu_torch.storage.object_storage import LocalFS
@@ -71,7 +84,27 @@ class Parseable:
             )
         self.storage = LocalFS(self.storage_options.root)
         self.metastore = ObjectStoreMetastore(self.storage)
+        self.node_id = self._load_or_create_node_id()
         self.streams = Streams(self.options)
+        # shared write-path pool: arrow-group compaction jobs across streams
+        # and per-stream upload ticks (P_SYNC_WORKERS)
+        self.sync_pool = ThreadPoolExecutor(
+            max_workers=max(1, self.options.sync_workers), thread_name_prefix="sync"
+        )
+        self._shutdown_done = False
+
+    def _load_or_create_node_id(self) -> str:
+        """Node identity persisted in staging, stable across restarts
+        (reference: modal/mod.rs:388-452)."""
+        path = self.options.staging_dir() / ".node.json"
+        if path.is_file():
+            try:
+                return json.loads(path.read_text())["node_id"]
+            except (KeyError, ValueError):
+                pass
+        node_id = generate_node_id()
+        path.write_text(json.dumps({"node_id": node_id, "created_at": rfc3339_now()}))
+        return node_id
 
     @property
     def owner_tag(self) -> str:
@@ -81,11 +114,20 @@ class Parseable:
 
     # --------------------------------------------------------------- streams
 
-    def create_stream_if_not_exists(self, name: str) -> Stream:
+    def create_stream_if_not_exists(
+        self,
+        name: str,
+        stream_type: str = "UserDefined",
+        log_source: LogSource = LogSource.JSON,
+        time_partition: str | None = None,
+        custom_partition: str | None = None,
+        telemetry_type: str = "logs",
+    ) -> Stream:
         existing = self.streams.get(name)
         if existing is not None:
             return existing
         validate_stream_name(name)
+        # an existing definition in the object store wins (restart bootstrap)
         meta = None
         fmts = self.metastore.get_all_stream_jsons(name)
         if fmts:
@@ -94,17 +136,46 @@ class Parseable:
             if schema is not None:
                 meta.schema = {f.name: f for f in schema}
         if meta is None:
-            meta = LogStreamMetadata(created_at=rfc3339_now())
+            meta = LogStreamMetadata(
+                time_partition=time_partition,
+                custom_partition=custom_partition,
+                stream_type=stream_type,
+                log_source=[log_source],
+                telemetry_type=telemetry_type,
+                created_at=rfc3339_now(),
+            )
             fmt = ObjectStoreFormat(
                 created_at=meta.created_at,
-                log_source=[{"log_source_format": "json", "fields": []}],
+                time_partition=time_partition,
+                custom_partition=custom_partition,
+                stream_type=stream_type,
+                log_source=[{"log_source_format": log_source.value, "fields": []}],
+                telemetry_type=telemetry_type,
             )
             self.metastore.put_stream_json(name, fmt)
         return self.streams.get_or_create(name, meta)
 
     @staticmethod
     def _metadata_from_format(fmt: ObjectStoreFormat) -> LogStreamMetadata:
-        return LogStreamMetadata(created_at=fmt.created_at, first_event_at=fmt.first_event_at)
+        return LogStreamMetadata(
+            schema_version=SchemaVersion(fmt.schema_version)
+            if fmt.schema_version in ("v0", "v1")
+            else SchemaVersion.V1,
+            time_partition=fmt.time_partition,
+            time_partition_limit_days=int(fmt.time_partition_limit.rstrip("d"))
+            if fmt.time_partition_limit
+            else None,
+            custom_partition=fmt.custom_partition,
+            static_schema_flag=fmt.static_schema_flag,
+            stream_type=fmt.stream_type,
+            log_source=[
+                LogSource.from_str(e.get("log_source_format", "json")) for e in fmt.log_source
+            ],
+            telemetry_type=fmt.telemetry_type,
+            created_at=fmt.created_at,
+            first_event_at=fmt.first_event_at,
+            infer_timestamp=fmt.infer_timestamp,
+        )
 
     def get_stream(self, name: str) -> Stream:
         s = self.streams.get(name)
@@ -129,24 +200,59 @@ class Parseable:
         return names
 
     def commit_schema(self, stream_name: str, new_schema: pa.Schema) -> None:
-        """Merge a schema into the stream schema and persist it."""
+        """Merge a schema into the stream schema and persist it
+        (reference: event/mod.rs:158). Serialized per stream: concurrent
+        ingest workers must not drop each other's new fields."""
         stream = self.get_stream(stream_name)
-        current = pa.schema(list(stream.metadata.schema.values()))
-        merged = merge_schemas([current, new_schema])
-        stream.metadata.schema = {f.name: f for f in merged}
-        self.metastore.put_schema(stream_name, merged)
+        with stream.lock:
+            current = pa.schema(list(stream.metadata.schema.values()))
+            merged = merge_schemas([current, new_schema])
+            stream.metadata.schema = {f.name: f for f in merged}
+            self.metastore.put_schema(stream_name, merged)
 
     # ----------------------------------------------------------------- sync
 
+    def local_sync(self, shutdown: bool = False) -> None:
+        """Local-sync tick: flush arrows + convert to parquet (sync.rs:244-313).
+        Compaction jobs of all streams run concurrently on the sync pool;
+        parquet stays staged until the next upload tick. `shutdown` also
+        finishes the current minute's writers."""
+        self.streams.flush_and_convert(shutdown, pool=self.sync_pool)
+
+    def sync_cycle(self, shutdown: bool = False) -> None:
+        """Pipelined local-sync tick (the server's): compaction on the sync
+        pool, each finished parquet claimed for upload as it lands, then one
+        upload and snapshot commit per stream: staging -> queryable lake
+        without waiting for the upload tick."""
+        landed: dict[str, tuple[Stream, list[Path]]] = {}
+        guard = threading.Lock()
+
+        def on_parquet(stream: Stream, path: Path) -> None:
+            with guard:
+                landed.setdefault(stream.name, (stream, []))[1].append(path)
+
+        self.streams.flush_and_convert(shutdown, pool=self.sync_pool, on_parquet=on_parquet)
+        for stream, files in landed.values():
+            try:
+                self._upload_claimed(stream, files)
+            except Exception:
+                logger.exception("pipelined sync failed for %s", stream.name)
+
     def upload_files_from_staging(self, stream: Stream) -> list[str]:
-        """Upload staged parquet, commit one snapshot update for the batch,
-        then delete the staged files.
+        """Upload tick for one stream: upload its staged parquet, commit the
+        catalog, delete the staged files."""
+        return self._upload_claimed(stream, stream.claim_parquet(stream.parquet_files()))
+
+    def _upload_claimed(self, stream: Stream, files: list[Path]) -> list[str]:
+        """Upload parquet claimed for this cycle, commit ONE snapshot update
+        for the batch, then delete the staged files.
 
         Durability ordering: a staged file is unlinked only after the
         snapshot commit succeeds; a failed upload or commit leaves it staged
         for the next cycle (a retried upload replaces the manifest entry by
-        file_path, so nothing is counted twice)."""
-        files = stream.claim_parquet(stream.parquet_files())
+        file_path, so nothing is counted twice). The commit and the unlink
+        are one step under the stream lock, so a query reading the staging
+        window under that lock sees each file either staged or committed."""
         uploaded: list[str] = []
         done = []
         for f in files:
@@ -163,28 +269,46 @@ class Parseable:
             uploaded.append(key)
         if not done:
             return uploaded
-        try:
-            # the ingest path commits a batch's schema before it stages;
-            # here the staged files are the only record of it
-            self.commit_schema(stream.name, merge_schemas([s for _, _, s in done]))
-            self.update_snapshot(stream, [e for _, e, _ in done])
-        except Exception:
-            logger.exception("snapshot commit failed for %s; keeping staged parquet", stream.name)
+        with stream.lock:
+            try:
+                # ingest commits a batch's schema before it stages; parquet
+                # staged by `Stream.write_parquet` has only this record of it
+                self.commit_schema(stream.name, merge_schemas([s for _, _, s in done]))
+                self.update_snapshot(stream, [e for _, e, _ in done])
+            except Exception:
+                logger.exception(
+                    "snapshot commit failed for %s; keeping staged parquet", stream.name
+                )
+                for f, _, _ in done:
+                    stream.unclaim_parquet(f)
+                return []
             for f, _, _ in done:
+                f.unlink(missing_ok=True)
                 stream.unclaim_parquet(f)
-            return []
-        for f, _, _ in done:
-            f.unlink(missing_ok=True)
-            stream.unclaim_parquet(f)
         return uploaded
 
     def sync_all_streams(self) -> None:
-        """Upload tick over every stream."""
+        """Upload tick: every stream syncs concurrently on the sync pool."""
+        futs = []
         for name in self.streams.list_names():
+            stream = self.streams.get(name)
+            if stream is not None:
+                futs.append((name, self.sync_pool.submit(self.upload_files_from_staging, stream)))
+        for name, fut in futs:
             try:
-                self.upload_files_from_staging(self.get_stream(name))
+                fut.result()
             except Exception:
                 logger.exception("object store sync failed for %s", name)
+
+    def shutdown(self) -> None:
+        """Flush staging, convert, upload, then stop the sync pool
+        (sync.rs:71-86). Idempotent."""
+        if self._shutdown_done:
+            return
+        self._shutdown_done = True
+        self.local_sync(shutdown=True)
+        self.sync_all_streams()
+        self.sync_pool.shutdown(wait=True)
 
     # --------------------------------------------------------------- catalog
 

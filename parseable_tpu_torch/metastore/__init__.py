@@ -131,6 +131,9 @@ class ObjectStoreMetastore:
                 out.append(d)
         return sorted(out)
 
+    def delete_stream(self, stream: str) -> None:
+        self.storage.delete_prefix(stream)
+
     # -- schema -------------------------------------------------------------
     def get_schema(self, stream: str) -> pa.Schema | None:
         obj = self._get_json(schema_path(stream))

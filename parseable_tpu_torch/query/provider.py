@@ -1,12 +1,22 @@
-"""Stream scan: the lake's Parquet files for one query.
+"""Stream scan: the staging window and the lake's Parquet files for one query.
 
-Counterpart of `parseable_tpu/query/provider.py` (`StreamScan`, :487),
-trimmed to the query slice: snapshot -> manifests overlapping the time range
--> per-file time and column-stats pruning (`prune_file`) -> Parquet read
-from the object store. Tables yield unfiltered, stamped with a source id;
-the engines apply the row-level time filter themselves. Staging data, the
-hot tier, device-resident stubs and the shared scan scheduler are later
-slices; a small in-order read-ahead overlaps Parquet decode with the engine.
+Counterpart of `parseable_tpu/query/provider.py` (`StreamScan`, :487):
+
+- the staging window (`staging_tables`): when the query's range reaches
+  into the last two local-sync intervals, this node's `.arrows` and the
+  staged parquet not yet committed are read first and row-filtered to the
+  range; they carry no source id, so the GPU engine merges them into blocks
+  of device size. They are taken under the stream lock together with the
+  manifest list, so a row moving from staging into the lake during the
+  query is counted once;
+- the lake: snapshot -> manifests overlapping the time range -> per-file
+  time and column-stats pruning (`prune_file`) -> Parquet read from the
+  object store. Lake tables yield unfiltered, stamped with a source id; the
+  engines apply the row-level time filter themselves.
+
+The hot tier, device-resident stubs, the cluster fan-in and the shared scan
+scheduler are later slices; a small in-order read-ahead overlaps Parquet
+decode with the engine.
 """
 
 from __future__ import annotations
@@ -17,13 +27,14 @@ import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from datetime import UTC, datetime
+from datetime import UTC, datetime, timedelta
 from typing import Iterator
 
 import pyarrow as pa
+import pyarrow.compute as pc
 import pyarrow.parquet as pq
 
-from parseable_tpu_torch import DEFAULT_TIMESTAMP_KEY
+from parseable_tpu_torch import DEFAULT_TIMESTAMP_KEY, LOCAL_SYNC_INTERVAL
 from parseable_tpu_torch.catalog import ManifestFile, Snapshot
 from parseable_tpu_torch.core import Parseable
 from parseable_tpu_torch.query.planner import LogicalPlan, prune_file
@@ -40,6 +51,9 @@ class ScanStats:
     files_pruned: int = 0
     bytes_scanned: int = 0
     rows_scanned: int = 0
+    # rows of rows_scanned read from the staging window (arrows and staged
+    # parquet), before the time filter
+    staging_rows: int = 0
     # files dropped from the result set by read/decode failures — nonzero
     # means the response is PARTIAL
     scan_errors: int = 0
@@ -62,6 +76,15 @@ class StreamScan:
         for fmt in self.p.metastore.get_all_stream_jsons(self.plan.stream):
             merged.manifest_list.extend(fmt.snapshot.manifest_list)
         return merged
+
+    def _within_staging_window(self) -> bool:
+        """Does the query range touch data still in staging?
+        (reference: stream_schema_provider.rs:849-871)."""
+        high = self.plan.time_bounds.high
+        if high is None:
+            return True
+        window_start = datetime.now(UTC) - timedelta(seconds=2 * LOCAL_SYNC_INTERVAL)
+        return high >= window_start
 
     def _columns_for_read(self, available: list[str]) -> list[str] | None:
         needed = self.plan.needed_columns
@@ -86,10 +109,13 @@ class StreamScan:
         return self._manifest_files
 
     def _manifest_files_uncached(self) -> list[ManifestFile]:
+        """Read the snapshot and prune; the file counts in `stats` describe
+        the latest read (the staging window re-reads under the stream lock)."""
         snapshot = self.merged_snapshot()
         items = snapshot.manifests_for_range(self.plan.time_bounds.low, self.plan.time_bounds.high)
         files: list[ManifestFile] = []
         seen: set[str] = set()
+        pruned = 0
         for item in items:
             prefix = item.manifest_path[: -len("/manifest.json")]
             manifest = self.p.metastore.get_manifest(prefix)
@@ -99,11 +125,12 @@ class StreamScan:
                 if f.file_path in seen:
                     continue
                 seen.add(f.file_path)
-                self.stats.files_total += 1
                 if not self._file_overlaps_time(f) or not prune_file(f, self.plan.constraints):
-                    self.stats.files_pruned += 1
+                    pruned += 1
                     continue
                 files.append(f)
+        self.stats.files_total = len(seen)
+        self.stats.files_pruned = pruned
         return files
 
     def _file_overlaps_time(self, f: ManifestFile) -> bool:
@@ -145,10 +172,75 @@ class StreamScan:
         meta[b"ptpu_source_id"] = source_id
         return table.replace_schema_metadata(meta)
 
+    def staging_tables(self) -> Iterator[pa.Table]:
+        """Staging-window data: this node's unconverted arrows, then its
+        staged parquet (an upload unlinks it in the step that commits it).
+
+        The arrows window and the staged parquet are opened, and the
+        manifest list is (re)read, under the stream lock: conversions and
+        upload commits move files under that lock too, so each row is seen
+        in exactly one of arrows, staged parquet or the manifest. Decoding
+        happens after the lock is released (open files stay readable when a
+        sync unlinks them)."""
+        stream = self.p.streams.get(self.plan.stream)
+        if stream is None:
+            return
+        staged: list[tuple[str, pq.ParquetFile]] = []
+        try:
+            with stream.lock:
+                batches = stream.staging_batches()
+                for f in stream.parquet_files():
+                    staged.append((f.name, pq.ParquetFile(f)))
+                self._manifest_files = self._manifest_files_uncached()
+            if batches:
+                table = pa.Table.from_batches(batches)
+                cols = self._columns_for_read(table.column_names)
+                if cols is not None:
+                    table = table.select(cols)
+                with self._stats_lock:
+                    self.stats.rows_scanned += table.num_rows
+                    self.stats.staging_rows += table.num_rows
+                yield table
+            for name, pf in staged:
+                try:
+                    t = pf.read(columns=self._columns_for_read(pf.schema_arrow.names))
+                except Exception:
+                    logger.exception("failed reading staged parquet %s", name)
+                    with self._stats_lock:
+                        self.stats.scan_errors += 1
+                    continue
+                with self._stats_lock:
+                    self.stats.rows_scanned += t.num_rows
+                    self.stats.staging_rows += t.num_rows
+                yield t
+        finally:
+            for _, pf in staged:
+                pf.close()
+
+    def _apply_time_filter(self, table: pa.Table) -> pa.Table:
+        tb = self.plan.time_bounds
+        if (tb.low is None and tb.high is None) or DEFAULT_TIMESTAMP_KEY not in table.column_names:
+            return table
+        col = table.column(DEFAULT_TIMESTAMP_KEY)
+        mask = None
+        if tb.low is not None:
+            mask = pc.greater_equal(col, pa.scalar(tb.low.replace(tzinfo=None), type=col.type))
+        if tb.high is not None:
+            m2 = pc.less(col, pa.scalar(tb.high.replace(tzinfo=None), type=col.type))
+            mask = m2 if mask is None else pc.and_(mask, m2)
+        return table.filter(mask)
+
     def tables(self) -> Iterator[pa.Table]:
-        """Every pruned source, in manifest order, decoded READ_AHEAD files
-        ahead of the consumer. Each table carries a source id (path, size,
-        rows), so a rewritten object at the same path is a new source."""
+        """The staging window's tables (row-filtered to the time range, no
+        source id), then every pruned lake source, in manifest order, decoded
+        READ_AHEAD files ahead of the consumer. Each lake table carries a
+        source id (path, size, rows), so a rewritten object at the same path
+        is a new source."""
+        if self._within_staging_window():
+            for t in self.staging_tables():
+                t = self._apply_time_filter(t)
+                if t.num_rows:
+                    yield t
         files = self.manifest_files()
         with ThreadPoolExecutor(max_workers=READ_AHEAD, thread_name_prefix="scan") as pool:
             pending: deque = deque()

@@ -30,6 +30,7 @@ from parseable_tpu_torch.query import sql as S
 from parseable_tpu_torch.query.executor import QueryExecutor
 from parseable_tpu_torch.query.planner import LogicalPlan, TimeBounds, plan as build_plan
 from parseable_tpu_torch.query.provider import StreamScan
+from parseable_tpu_torch.utils.arrowutil import record_batches_to_json
 from parseable_tpu_torch.utils.timeutil import TimeRange
 
 ENGINES = ("gpu", "cpu")
@@ -44,6 +45,10 @@ class QueryResult:
     table: pa.Table
     fields: list[str]
     stats: dict[str, Any] = field(default_factory=dict)
+
+    def to_json_rows(self) -> list[dict]:
+        """Row-major JSON records of the result (the HTTP response body)."""
+        return record_batches_to_json(self.table.to_batches())
 
 
 class _TimedIter:
@@ -118,6 +123,7 @@ class QuerySession:
                 "files_pruned": scan.stats.files_pruned,
                 "bytes_scanned": scan.stats.bytes_scanned,
                 "rows_scanned": scan.stats.rows_scanned,
+                "staging_rows": scan.stats.staging_rows,
                 # nonzero = files dropped by read failures (partial result)
                 "scan_errors": scan.stats.scan_errors,
             }
@@ -154,9 +160,11 @@ class QuerySession:
                 and lp.time_bounds.low is None
                 and lp.time_bounds.high is None
                 and lp.needed_columns is not None
+                and lp.needed_columns - {DEFAULT_TIMESTAMP_KEY}
             ):
                 # no bounds and no expression touches the timestamp: skip
-                # encoding and shipping it
+                # encoding and shipping it, unless it is the only column read
+                # (a table of no columns loses its row count when stamped)
                 lp.needed_columns.discard(DEFAULT_TIMESTAMP_KEY)
             self._set_scan_time_hint(lp, scan)
             executor: QueryExecutor = GpuQueryExecutor(lp, self.p.options, device=self.device)

@@ -53,6 +53,14 @@ class ObjectStorage(ABC):
     def upload_file(self, key: str, path: Path) -> None:
         """Upload a local file."""
 
+    @abstractmethod
+    def delete_object(self, key: str) -> None: ...
+
+    def delete_prefix(self, prefix: str) -> None:
+        """List-then-delete every object under `prefix`."""
+        for meta in list(self.list_prefix(prefix)):
+            self.delete_object(meta.key)
+
     def absolute_url(self, key: str) -> str:
         return key
 
@@ -115,3 +123,6 @@ class LocalFS(ObjectStorage):
         tmp = self._tmp(dest)
         shutil.copyfile(path, tmp)
         os.replace(tmp, dest)
+
+    def delete_object(self, key: str) -> None:
+        self._abs(key).unlink(missing_ok=True)

@@ -136,12 +136,17 @@ def test_jax_package_reads_the_lake_the_port_wrote(tmp_path):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Importing the whole port (every module) loads no JAX."""
+    """Importing the whole port (every module, the server, ingest, event and
+    staging modules named too) loads no JAX."""
     code = (
         "import pkgutil, sys, parseable_tpu_torch\n"
         "for m in pkgutil.walk_packages(parseable_tpu_torch.__path__, 'parseable_tpu_torch.'):\n"
         "    __import__(m.name)\n"
         "import parseable_tpu_torch.query.session, parseable_tpu_torch.query.executor_cuda\n"
+        "import parseable_tpu_torch.server.app, parseable_tpu_torch.server.ingest_utils\n"
+        "import parseable_tpu_torch.event, parseable_tpu_torch.event.format\n"
+        "import parseable_tpu_torch.event.json_format, parseable_tpu_torch.staging.writer\n"
+        "import parseable_tpu_torch.staging.reader, parseable_tpu_torch.rbac\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
         "             or n == 'parseable_tpu' or n.startswith('parseable_tpu.'))\n"
         "print(bad)\n"
