@@ -10,10 +10,14 @@ switch), writes an access-log lake of 2^23 rows (8 one-minute Parquet
 files of 2^20 rows, the shape of `bench.py`'s "default" profile) through the
 port's own sync path (phase 3), and answers four GROUP BY queries on the
 port's "gpu" engine and on its "cpu" engine, cold and then warm (phase 4).
-Phase 5 checks and times each kernel on the inputs the main path gave it
-(one block per shape, recorded in phase 4) and on uniform inputs of the
-same shape. Any failed check raises, so the script exits non-zero; it needs
-one CUDA card and has no CPU path.
+Phase 7 answers two dashboard queries with stddev, var, approximate
+percentiles, count(distinct) and approx_distinct on the same lake, through
+the statistics kernels K5-K7 (`parseable_tpu_torch/csrc/stats.cu`). Phase 5
+checks and times each kernel on the inputs the main path gave it (one block
+per shape, recorded in phases 4 and 7) and kernels A and B also on uniform
+inputs of the same shape. Phase 6 runs the HTTP server. Any failed check
+raises, so the script exits non-zero; it needs one CUDA card and has no CPU
+path.
 
 Kernel times are device times: REPS calls enqueued back to back between two
 CUDA events behind a device spin (`DeviceTimer`), L2-cold (rotating over
@@ -171,12 +175,14 @@ def bound_ms(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S) -> tup
     return (max(tb, to) * 1e3, "bytes" if tb >= to else "operations")
 
 
-def timed(timer, fns: dict, copies: int) -> dict:
+def timed(timer, fns: dict, copies: int, reset=None) -> dict:
     """Each call of `fns` L2-cold (rotating `copies` input sets) and L2-warm
-    (one set)."""
+    (one set); `reset()`, when given, runs before each timing, outside it."""
     res = {}
     for suffix, n in (("", copies), ("_l2_warm", 1)):
         for key, fn in fns.items():
+            if reset:
+                reset()
             res[key + suffix] = timer.ms(fn, n)
     return res
 
@@ -439,7 +445,9 @@ def rows_of(table) -> list[tuple]:
     return sorted(rows, key=lambda r: tuple(str(r[c]) for c in key_cols))
 
 
-def same_result(name: str, gpu, cpu) -> None:
+def same_result(name: str, gpu, cpu, rel: dict | None = None) -> None:
+    """Rows equal on their keys; floats within ABS_TOL + REL_TOL (or the
+    column's own relative tolerance in `rel`) of the CPU engine's."""
     a, b = rows_of(gpu), rows_of(cpu)
     check(len(a) == len(b), f"{name}: {len(a)} rows on gpu vs {len(b)} on cpu")
     for ra, rb in zip(a, b):
@@ -447,8 +455,9 @@ def same_result(name: str, gpu, cpu) -> None:
         for col in ra:
             va, vb = ra[col], rb[col]
             if isinstance(va, float) and isinstance(vb, float):
+                tol = (rel or {}).get(col, REL_TOL)
                 check(
-                    abs(va - vb) <= ABS_TOL + REL_TOL * abs(vb),
+                    abs(va - vb) <= ABS_TOL + tol * abs(vb),
                     f"{name}.{col}: gpu {va} vs cpu {vb}",
                 )
             else:
@@ -483,10 +492,18 @@ def build_lake(work: Path, seed: int, minutes: int, rows: int):
     return p
 
 
-def profiled_query(torch, sess, qname: str, text: str):
+# device kernel names of each hand kernel, as the profiler reports them
+KERNEL_SYMBOLS = {
+    "additive_groupby": "additive", "minmax_groupby": "minmax",
+    "distinct_fold": "distinct_kernel", "pct_histogram": "pct_hist_kernel",
+    "centered_m2": "m2_kernel",
+}
+
+
+def profiled_query(torch, sess, qname: str, text: str, phase: str = "phase 4"):
     """One more warm GPU run under torch.profiler: the device's busy time
-    (CUDA kernels and copies) against the query's wall time, and the two
-    hand kernels' share of it."""
+    (CUDA kernels and copies) against the query's wall time, and the hand
+    kernels' share of it."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -494,24 +511,26 @@ def profiled_query(torch, sess, qname: str, text: str):
         res = sess.query(text)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    busy_us = {"all": 0.0, "additive": 0.0, "minmax": 0.0}
-    calls = {"additive": 0, "minmax": 0}
+    busy_us = dict.fromkeys(("all", *KERNEL_SYMBOLS), 0.0)
+    calls = dict.fromkeys(KERNEL_SYMBOLS, 0)
     for ev in prof.key_averages():
         if str(getattr(ev, "device_type", "")).endswith("CUDA"):
             us = getattr(ev, "self_device_time_total", 0.0)
             busy_us["all"] += us
-            for k in ("additive", "minmax"):
-                if k in ev.key:
+            for k, sym in KERNEL_SYMBOLS.items():
+                if sym in ev.key:
                     busy_us[k] += us
                     calls[k] += ev.count
     if busy_us["all"] == 0.0:
-        log(f"phase 4 {qname} profile: the profiler saw no device time (not measured)")
+        log(f"{phase} {qname} profile: the profiler saw no device time (not measured)")
     else:
+        kernels = ", ".join(
+            f"{k} {busy_us[k] / 1e3:.3f} ms in {calls[k]} kernels" for k in KERNEL_SYMBOLS if calls[k]
+        )
         log(
-            f"phase 4 {qname} profile: wall {wall_ms:.3f} ms, device busy "
+            f"{phase} {qname} profile: wall {wall_ms:.3f} ms, device busy "
             f"{busy_us['all'] / 1e3:.3f} ms (idle share {1 - busy_us['all'] / 1e3 / wall_ms:.4f}), "
-            f"kernel A {busy_us['additive'] / 1e3:.3f} ms in {calls['additive']} kernels, "
-            f"kernel B {busy_us['minmax'] / 1e3:.3f} ms in {calls['minmax']} kernels"
+            f"{kernels}"
         )
     return res
 
@@ -599,6 +618,293 @@ def drive_main_path(p, device=None) -> tuple[dict, dict, dict]:
     return launches, shapes, inputs
 
 
+
+# ------------------------------------------------------------ statistics
+
+STATS_QUERIES = {
+    # G of about 8 (five status values): the shared histogram regime
+    "stats_status": (
+        "SELECT status, count(*) AS c, stddev(latency_ms) AS sd, var(bytes) AS vb, "
+        "approx_percentile_cont(latency_ms, 0.99) AS p99, approx_median(bytes) AS p50 "
+        "FROM {stream} WHERE p_timestamp >= '2024-05-01T00:02:00Z' GROUP BY status"
+    ),
+    # G of about 64 (minute bins x statuses): the global histogram regime and
+    # an HLL register file of G x 4096 registers
+    "stats_minute": (
+        "SELECT date_bin(interval '1 minute', p_timestamp) AS t, status, "
+        "count(distinct path) AS paths, approx_distinct(host) AS hosts, "
+        "approx_percentile_cont(latency_ms, 0.5) AS p50 FROM {stream} "
+        "WHERE status >= 400 GROUP BY t, status"
+    ),
+}
+# against the CPU engine: stddev/var f32 moments rel 2e-4; percentiles the
+# JAX package's own bound between its engines (tests/test_device_stats.py);
+# counts, count(distinct) and approx_distinct (the same registers) exact
+STATS_REL = {"sd": REL_TOL, "vb": REL_TOL, "p99": 0.06, "p50": 0.06}
+STATS_KERNELS = ("distinct_fold", "pct_histogram", "centered_m2")
+
+
+def stats_inputs(torch, SC, kind: str, key: tuple, gen) -> tuple:
+    """Uniform inputs of one statistics kernel at `key`, as the main path
+    shapes them: K5 (G, cap, hll, N) with int8 codes over a 100-value
+    dictionary; K6 (G, N) with values uniform on [0, 500); K7 (Q, N, G)."""
+    if kind == "distinct_fold":
+        g, cap, hll, n = key
+        v = 100
+        lut = (torch.stack([torch.randint(0, cap, (v,), generator=gen),
+                            torch.randint(1, 20, (v,), generator=gen)]) if hll
+               else torch.randint(0, min(v, cap - 1), (v,), generator=gen))
+        return (torch.zeros(g * cap), torch.randint(0, g, (n,), generator=gen, dtype=torch.int32),
+                torch.randint(0, v, (n,), generator=gen).to(torch.int8),
+                torch.rand(n, generator=gen) < 0.9, lut.to(torch.int32))
+    if kind == "pct_histogram":
+        g, n = key
+        return (torch.zeros(g * SC.DEVICE_NB), torch.rand(n, generator=gen) * 500,
+                torch.randint(0, g, (n,), generator=gen, dtype=torch.int32),
+                torch.rand(n, generator=gen) < 0.9)
+    q, n, g = key
+    return (torch.randint(0, g, (n,), generator=gen, dtype=torch.int32),
+            torch.rand(q, n, generator=gen) * 50_000, torch.rand(q, n, generator=gen) < 0.9,
+            torch.rand(n, generator=gen) < 0.9, torch.rand(q, g, generator=gen) * 50_000)
+
+
+def pct_edge_rows(torch, SC, vals, mask) -> int:
+    """Live rows whose f32 log2|v| lies within one ulp of a bin edge (the
+    rows a different log2 could move into a neighbouring bin)."""
+    mag = torch.log2(vals.abs())
+    up = SC.pct_bins(torch.nextafter(mag, torch.full_like(mag, math.inf)))
+    down = SC.pct_bins(torch.nextafter(mag, torch.full_like(mag, -math.inf)))
+    return int((mask & (vals != 0) & ~torch.isnan(vals) & (up != down)).sum())
+
+
+def stats_case(torch, SC, timer, kind: str, key: tuple, data: tuple, inputs: str,
+               regime: str | None = None) -> dict:
+    """One statistics kernel at `key` (as in `stats_inputs`) against its
+    plain version on the card (K5 and K6 bit for bit, K7 within rel 2e-4 of
+    its f64 plain version), then timed L2-cold and L2-warm beside its plain
+    version and one library call on the same inputs, with its bound: the
+    block's inputs read once, plus the accumulator entries its rows reach
+    (K5, K6) or K7's means and output."""
+    data = tuple(t.cuda().contiguous() for t in data)
+    res = {"shape": f"{kind} {key}", "inputs": inputs}
+    if kind == "distinct_fold":
+        g, cap, hll, n = key
+        acc, ids, codes, mask, lut = data
+        res["regime"] = regime or SC.distinct_regime(g, cap)
+        got = SC.distinct_fold(acc.clone(), ids, codes, mask, cap, lut, regime=res["regime"])
+        want = SC.distinct_fold_plain(acc, ids, codes, mask, cap, lut)
+        check(torch.equal(got, want), f"K5 not exact: {res['shape']}")
+        reached = SC.distinct_fold_plain(torch.zeros_like(acc), ids, codes, mask, cap, lut)
+        nbytes = n * (4 + codes.element_size() + 1) + lut.numel() * 4
+        ops = n
+    elif kind == "pct_histogram":
+        g, n = key
+        acc, vals, ids, mask = data
+        res["regime"] = regime or SC.pct_regime(g)
+        got = SC.pct_histogram(acc.clone(), vals, ids, mask, regime=res["regime"])
+        want = SC.pct_histogram_plain(acc, vals, ids, mask)
+        res["edge_rows"] = pct_edge_rows(torch, SC, vals, mask)
+        res["bins_differing"] = int((got != want).sum())
+        check(res["bins_differing"] == 0, f"K6 not exact per bin: {res}")
+        reached = SC.pct_histogram_plain(torch.zeros_like(acc), vals, ids, mask)
+        nbytes = n * 9
+        ops = 6 * n
+    else:
+        q, n, g = key
+        ids, vals, valid, mask, mean = data
+        res["regime"] = regime or SC.m2_regime(q, g)
+        got = SC.centered_m2(ids, vals, valid, mask, mean, regime=res["regime"])
+        want = SC.centered_m2_plain(ids, vals, valid, mask, mean)
+        fin = torch.isfinite(want)
+        check(torch.equal(torch.isnan(got), torch.isnan(want))
+              and bool(torch.allclose(got[fin], want[fin], rtol=REL_TOL, atol=ABS_TOL)),
+              f"K7 disagrees with its f64 plain version: {res['shape']}")
+        nbytes = n * (4 + 1 + 5 * q) + 2 * q * g * 4
+        ops = 3 * q * n
+    if kind != "centered_m2":
+        # the accumulator entries this block's rows reach, read and written
+        # once; the rest of the accumulator the fold need not touch
+        res["entries_reached"] = int((reached > 0).sum())
+        nbytes += 8 * res["entries_reached"]
+    both = torch.isfinite(got) & torch.isfinite(want)
+    res["max_abs_err"] = (got - want)[both].abs().max().item() if both.any() else 0.0
+    copies = n_copies(nbytes)
+    sets = [data] + [tuple(t.clone() for t in data) for _ in range(copies - 1)]
+    reset = None
+    if kind == "distinct_fold":
+        # the library call gets the flat slots and values ready-made
+        def flat_of(d):
+            acc, ids, codes, mask, lut = d
+            c = codes.long()
+            slot = torch.clamp((lut[0] if hll else lut).long()[c], max=cap - 1)
+            val = lut[1][c].float() if hll else torch.ones(n, device=c.device)
+            return torch.where(mask, ids.long() * cap + slot, g * cap), torch.where(mask, val, 0.0)
+
+        lib_in = [flat_of(d) for d in sets]
+        # Every timed call folds into a fresh copy of the accumulator as this
+        # block found it (with the library's spare slot): folded again into
+        # registers that already hold their values, K5 would skip every
+        # store and atomic, and time a no-op.
+        pool = [torch.cat([acc, acc.new_zeros(1)]) for _ in range(3 + 2 * REPS)]
+        turn = [0]
+
+        def fresh():
+            turn[0] += 1
+            return pool[(turn[0] - 1) % len(pool)]
+
+        def reset():
+            for a in pool:
+                a[:-1].copy_(acc)
+            turn[0] = 0
+
+        fns = {
+            "ms": lambda k: SC.distinct_fold(fresh()[:-1], *sets[k][1:4], cap, sets[k][4],
+                                             regime=res["regime"]),
+            "plain_ms": lambda k: SC.distinct_fold_plain(*sets[k][:4], cap, sets[k][4]),
+            "library_ms": lambda k: fresh().scatter_reduce_(0, *lib_in[k], "amax"),
+        }
+        res["library"] = "scatter_reduce_ amax"
+    elif kind == "pct_histogram":
+        def flat_of(d):
+            acc, vals, ids, mask = d
+            live = mask & ~torch.isnan(vals)
+            return (torch.where(live, ids.long() * SC.DEVICE_NB + SC.pct_slots(vals), g * SC.DEVICE_NB),
+                    live.float())
+
+        lib_in = [flat_of(d) for d in sets]
+        lib_acc = torch.zeros(g * SC.DEVICE_NB + 1, device="cuda")
+        fns = {
+            "ms": lambda k: SC.pct_histogram(*sets[k], regime=res["regime"]),
+            "plain_ms": lambda k: SC.pct_histogram_plain(*sets[k]),
+            "library_ms": lambda k: lib_acc.index_add_(0, *lib_in[k]),
+        }
+        res["library"] = "index_add_"
+    else:
+        def flat_of(d):
+            ids, vals, valid, mask, mean = d
+            d2 = torch.where(valid & mask[None], vals - mean[:, ids.long()], 0.0)
+            return ids.long(), d2 * d2
+
+        lib_in = [flat_of(d) for d in sets]
+        lib_out = torch.zeros(q, g, device="cuda")
+        fns = {
+            "ms": lambda k: SC.centered_m2(*sets[k], regime=res["regime"]),
+            "plain_ms": lambda k: SC.centered_m2_plain(*sets[k]),
+            "library_ms": lambda k: lib_out.index_add_(1, *lib_in[k]),
+        }
+        res["library"] = "index_add_ of the centred squares"
+    res.update(timed(timer, fns, copies, reset))
+    if reset:
+        reset()
+    res["profiler_ms"] = profiled_ms(torch, fns["ms"], (KERNEL_SYMBOLS[kind],))
+    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, ops)
+    res["copies"] = copies
+    return res
+
+
+# phase 2: both regimes of each statistics kernel on uniform inputs, on
+# both sides of K5's rule (stats_cuda.distinct_regime)
+STATS_REGIMES = (
+    ("distinct_fold", (8, 128, False, N_BLOCK), "shared"),
+    ("distinct_fold", (64, 128, False, N_BLOCK), "shared"),
+    ("distinct_fold", (64, 128, False, N_BLOCK), "global"),
+    ("distinct_fold", (2048, 128, False, N_BLOCK), "global"),
+    ("distinct_fold", (8, 4096, True, N_BLOCK), "shared"),
+    ("distinct_fold", (8, 4096, True, N_BLOCK), "global"),
+    ("distinct_fold", (64, 4096, True, N_BLOCK), "global"),
+    ("pct_histogram", (8, N_BLOCK), "shared"),
+    ("pct_histogram", (8, N_BLOCK), "global"),
+    ("pct_histogram", (128, N_BLOCK), "global"),
+    ("centered_m2", (2, N_BLOCK, 8), "shared"),
+    ("centered_m2", (2, N_BLOCK, 8), "global"),
+    ("centered_m2", (2, N_BLOCK, 65536), "global"),
+)
+
+
+def drive_stats(p, device=None) -> tuple[dict, dict, dict]:
+    """Phase 7: the two dashboard queries on the "gpu" engine (on `device`,
+    default the card) and the "cpu" engine, cold then warm, as in phase 4;
+    every GPU run must stay on the device and launch K5-K7. Returns the
+    launch counts of the phase (all kernels), the statistics kernels'
+    shapes with their call counts, and one block's inputs per shape."""
+    import torch
+
+    from parseable_tpu_torch.ops import groupby_cuda as G
+    from parseable_tpu_torch.ops import stats_cuda as SC
+    from parseable_tpu_torch.query.session import QuerySession
+
+    shapes: dict[str, dict] = {k: {} for k in STATS_KERNELS}
+    inputs: dict[str, dict] = {k: {} for k in STATS_KERNELS}
+    real = {k: getattr(SC, k) for k in STATS_KERNELS}
+
+    def record(name, key, tensors):
+        shapes[name][key] = shapes[name].get(key, 0) + 1
+        if key not in inputs[name]:
+            inputs[name][key] = tuple(t.clone() for t in tensors)
+
+    def rec_k5(acc, ids, codes, mask, cap, lut=None, **kw):
+        hll = lut is not None and lut.dim() == 2
+        record("distinct_fold", (acc.numel() // cap, cap, hll, ids.shape[0]),
+               (acc, ids, codes, mask, lut))
+        return real["distinct_fold"](acc, ids, codes, mask, cap, lut, **kw)
+
+    def rec_k6(acc, vals, ids, mask, **kw):
+        record("pct_histogram", (acc.numel() // SC.DEVICE_NB, ids.shape[0]), (acc, vals, ids, mask))
+        return real["pct_histogram"](acc, vals, ids, mask, **kw)
+
+    def rec_k7(ids, vals, valid, mask, mean, **kw):
+        record("centered_m2", (vals.shape[0], vals.shape[1], mean.shape[1]),
+               (ids, vals, valid, mask, mean))
+        return real["centered_m2"](ids, vals, valid, mask, mean, **kw)
+
+    on_card = device is None or torch.device(device).type == "cuda"
+    SC.distinct_fold, SC.pct_histogram, SC.centered_m2 = rec_k5, rec_k6, rec_k7
+    counts = (G.LAUNCHES, SC.LAUNCHES)
+    for c in counts:
+        for name in c:
+            c[name] = 0
+    try:
+        for qname, sql in STATS_QUERIES.items():
+            text = sql.format(stream=STREAM)
+            before = dict(SC.LAUNCHES)
+            out: dict[str, list] = {}
+            for engine in ("gpu", "cpu"):
+                for run in ("cold", "warm"):
+                    sess = QuerySession(p, engine=engine, device=device if engine == "gpu" else None)
+                    t = time.perf_counter()
+                    res = sess.query(text)
+                    if engine == "gpu" and on_card:
+                        torch.cuda.synchronize()
+                    dt = time.perf_counter() - t
+                    out.setdefault(engine, []).append(res)
+                    log(
+                        f"phase 7 {qname} {engine} {run}: {res.table.num_rows} rows out, "
+                        f"{res.stats['rows_scanned']} scanned in {dt:.3f} s = "
+                        f"{res.stats['rows_scanned'] / dt:.6g} rows/s stages {res.stats['stages']}"
+                        + (f" routes {res.stats['device_routes']}" if engine == "gpu" else "")
+                    )
+            if on_card:
+                out["gpu"].append(profiled_query(torch, QuerySession(p, device=device), qname, text,
+                                                 "phase 7"))
+            for res in out["gpu"]:
+                routes = res.stats["device_routes"]
+                check(routes["cpu_fallback"] == 0, f"{qname}: cpu_fallback {routes}")
+                check(routes["device_cold"] > 0, f"{qname}: no block ran on the device {routes}")
+                check(res.stats["scan_errors"] == 0, f"{qname}: scan errors")
+            for res in out["gpu"] + out["cpu"][1:]:
+                same_result(qname, res.table, out["cpu"][0].table, STATS_REL)
+            check(out["gpu"][0].table.num_rows > 0, f"{qname}: empty result")
+            delta = {k: SC.LAUNCHES[k] - before[k] for k in SC.LAUNCHES}
+            log(f"phase 7 {qname}: gpu == cpu, launches {delta}, first rows "
+                f"{json.dumps(rows_of(out['gpu'][0].table)[:2], default=str)}")
+    finally:
+        SC.distinct_fold, SC.pct_histogram, SC.centered_m2 = (real[k] for k in STATS_KERNELS)
+    launches = {**G.LAUNCHES, **SC.LAUNCHES}
+    if on_card:
+        for name, n in launches.items():
+            check(n > 0, f"{name} was never launched in phase 7")
+    log(f"phase 7 launches: {launches}")
+    return launches, shapes, inputs
 
 # ------------------------------------------------------------------ server
 
@@ -981,25 +1287,35 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     try:
+        from parseable_tpu_torch.ops import cuda_lib
         from parseable_tpu_torch.ops import groupby_cuda as G
+        from parseable_tpu_torch.ops import stats_cuda as SC
         from parseable_tpu_torch.utils.devicecheck import probe
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    seconds: dict[str, float] = {}
+    clock = [time.perf_counter()]
 
-    # -- phase 1: device and build
+    def phase_done(name: str) -> None:
+        now = time.perf_counter()
+        seconds[name] = round(now - clock[0], 3)
+        clock[0] = now
+
+    # -- phase 1: device and build (one nvcc per source, started together)
     smi = nvidia_smi()
     log(f"card: {smi}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     report = probe("cuda")
     check(report.get("healthy") is True, f"device probe failed: {report}")
     log(f"phase 1 device: {report}")
-    log(f"phase 1 build: kernels built and loaded in {G.build_and_load():.3f} s")
+    log(f"phase 1 build: kernels built and loaded in {cuda_lib.build_all([G.LIBRARY, SC.LIBRARY]):.3f} s")
     timer = DeviceTimer(torch)
+    phase_done("1 device and build")
 
-    # -- phase 2: every regime of both kernels against its plain version,
+    # -- phase 2: every regime of every kernel against its plain version,
     # on uniform inputs at the shapes the main path does not use, then the
     # edge cases in every regime
     gen = torch.Generator().manual_seed(args.seed)
@@ -1011,31 +1327,63 @@ def main() -> int:
         res = kernel_b_case(torch, G, timer, *uniform_b(torch, 2, N_BLOCK, g, gen), g, 1,
                             "uniform")
         log(f"phase 2 minmax_groupby {json.dumps(res)}")
+    for kind, key, regime in STATS_REGIMES:
+        res = stats_case(torch, SC, timer, kind, key, stats_inputs(torch, SC, kind, key, gen),
+                         "uniform", regime=regime)
+        log(f"phase 2 {kind} {json.dumps(res)}")
     edge_cases(torch, G, gen)
     rule_sweep(torch, G, timer, gen)
+    phase_done("2 regimes, edges, rules")
 
-    # -- phases 3 and 4: the lake, then the main path on it
+    # -- phases 3, 4 and 7: the lake, then the main path and the statistics
+    # queries on it
     work = ROOT / "build" / "smoke_lake"
     shutil.rmtree(work, ignore_errors=True)
     try:
         p = build_lake(work, args.seed, MINUTES, N_BLOCK)
+        phase_done("3 lake")
         launches, shapes, inputs = drive_main_path(p)
+        phase_done("4 main path")
+        stats_launches, stats_shapes, stats_inputs_ = drive_stats(p)
+        phase_done("7 statistics")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     # -- phase 6: the HTTP server, ingest and queries, on the card
     server_launches = drive_server(torch, G, args.seed)
+    phase_done("6 server")
 
     # -- phase 5: each kernel at the shapes the main path gave it, on one
-    # block's real inputs and on uniform inputs of the same shape
+    # block's real inputs (and kernels A and B on uniform inputs of the same
+    # shape)
     report = []
     replaces = {
         "additive_groupby": "parseable_tpu/ops/pallas_groupby.py:53",
         "minmax_groupby": "parseable_tpu/ops/kernels.py:233",
+        "distinct_fold": "parseable_tpu/query/executor_tpu.py:2931",
+        "pct_histogram": "parseable_tpu/query/executor_tpu.py:2954",
+        "centered_m2": "parseable_tpu/query/executor_tpu.py:889",
     }
-    for name in ("additive_groupby", "minmax_groupby"):
+    sources = {
+        "additive_groupby": "parseable_tpu_torch/csrc/groupby.cu",
+        "minmax_groupby": "parseable_tpu_torch/csrc/groupby.cu",
+        **dict.fromkeys(STATS_KERNELS, "parseable_tpu_torch/csrc/stats.cu"),
+    }
+    for name in ("additive_groupby", "minmax_groupby", *STATS_KERNELS):
         cases = []
-        for key, calls in sorted(shapes[name].items()):
+        if name in STATS_KERNELS:
+            for key, calls in sorted(stats_shapes[name].items(), key=str):
+                res = stats_case(torch, SC, timer, name, key, stats_inputs_[name][key], "main path")
+                res["main_path_calls"] = calls
+                log(f"phase 5 {name} {json.dumps(res)}")
+                cases.append(res)
+                if name == "distinct_fold" and key[0] * key[1] * 4 <= G.SMEM_BUDGET:
+                    # both sides of K5's rule on the main path's own inputs
+                    other = "global" if res["regime"] == "shared" else "shared"
+                    alt = stats_case(torch, SC, timer, name, key, stats_inputs_[name][key],
+                                     "main path", regime=other)
+                    log(f"phase 5 {name} (the rule's other regime) {json.dumps(alt)}")
+        for key, calls in sorted(shapes.get(name, {}).items()):
             for kind in ("main path", "uniform"):
                 if name == "additive_groupby":
                     r, n, g = key
@@ -1056,10 +1404,13 @@ def main() -> int:
             {
                 "name": name,
                 "route": "cuda",
-                "source": "parseable_tpu_torch/csrc/groupby.cu",
+                "source": sources[name],
                 "replaces": replaces[name],
-                "launches": launches[name],
-                "launches_server": server_launches[name],
+                # phase 4's count for A and B, phase 7's for K5-K7
+                "launches": stats_launches[name] if name in STATS_KERNELS else launches[name],
+                "launches_lake": launches.get(name, 0),
+                "launches_stats": stats_launches[name],
+                "launches_server": server_launches.get(name, 0),
                 "max_abs_err": top["max_abs_err"],
                 "ms": top["ms"],
                 "plain_ms": top["plain_ms"],
@@ -1073,6 +1424,8 @@ def main() -> int:
                 "profiler_ms": top["profiler_ms"],
             }
         )
+    phase_done("5 kernel times")
+    log(f"seconds per phase: {json.dumps(seconds)}")
     log(smi)  # the card, as nvidia-smi names it and its power limit
     print(json.dumps({"kernels": report}))
     print(

@@ -9,7 +9,9 @@ aggregate over staging and the lake answered by
 `QuerySession(p).query(...)`. Each scanned block is encoded on the host,
 shipped to the card in one copy, masked and grouped with plain tensor
 code, and reduced by the hand-written group-by kernels in
-`csrc/groupby.cu` (see `ops/groupby_cuda.py`).
+`csrc/groupby.cu` (see `ops/groupby_cuda.py`); stddev/var, approximate
+percentiles, count(distinct) and approx_distinct fold through the
+statistics kernels in `csrc/stats.cu` (see `ops/stats_cuda.py`).
 
 Module paths and public names follow the JAX package, so the counterpart of
 `parseable_tpu/query/planner.py` is `parseable_tpu_torch/query/planner.py`.

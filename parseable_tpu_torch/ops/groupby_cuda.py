@@ -42,22 +42,24 @@ the kernel or raises. The tests and `chip_smoke.py` compare the two.
 
 The library is compiled with nvcc for sm_90a at first use into
 `build/kernels/` at the repository root and loaded with ctypes (plain C
-interface, no PyTorch headers). `LAUNCHES` counts kernel launches per
-wrapper, so a run can show that the main path went through the kernels.
+interface, no PyTorch headers; `ops/cuda_lib.py`). `LAUNCHES` counts kernel
+launches per wrapper, so a run can show that the main path went through the
+kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
-from pathlib import Path
 
 import torch
+
+from parseable_tpu_torch.ops.cuda_lib import CudaLibrary, KernelError
+from parseable_tpu_torch.ops.cuda_lib import check as _check
+from parseable_tpu_torch.ops.cuda_lib import check_ids as _check_ids
+from parseable_tpu_torch.ops.cuda_lib import on_cuda as _on_cuda
+from parseable_tpu_torch.ops.cuda_lib import require as _require
+
+__all__ = ["KernelError", "LAUNCHES", "additive_groupby", "minmax_groupby"]
 
 F32_MAX = 3.4e38
 SMEM_BUDGET = 200 * 1024  # dynamic shared memory a CTA may ask for (csrc kSmemCap)
@@ -70,102 +72,19 @@ REGIMES = {"tensor": 0, "shared": 1, "global": 2}
 MINMAX_DECODE_IN_KERNEL = 2048  # key entries kernel B's last CTA decodes itself
 DECODES = {"launch": 0, "kernel": 1}
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "groupby.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
-
 # kernel launches per wrapper (plain integers; reset by whoever measures)
 LAUNCHES = {"additive_groupby": 0, "minmax_groupby": 0}
 
-_lib = None
-_lib_lock = threading.Lock()
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.additive_groupby.argtypes = [p, p, p, i, ll, i, i, p]
+    lib.additive_groupby.restype = i
+    lib.minmax_groupby.argtypes = [p, p, p, p, p, p, i, i, ll, i, i, p]
+    lib.minmax_groupby.restype = i
 
 
-class KernelError(RuntimeError):
-    """A kernel failed to build, refused its launch or got bad inputs."""
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    cand = Path(home) / "bin" / "nvcc"
-    if cand.is_file():
-        return str(cand)
-    raise KernelError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-
-
-def library_path() -> Path:
-    """Built library for the current source (named by its content hash, so
-    an edited source never loads a stale build)."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"libgroupby_{digest[:16]}.so"
-
-
-def build() -> Path:
-    """Compile csrc/groupby.cu unless the library for this source exists."""
-    out = library_path()
-    if out.is_file():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise KernelError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.additive_groupby.argtypes = [p, p, p, i, ll, i, i, p]
-            lib.additive_groupby.restype = i
-            lib.minmax_groupby.argtypes = [p, p, p, p, p, p, i, i, ll, i, i, p]
-            lib.minmax_groupby.restype = i
-            _lib = lib
-        return _lib
-
-
-def build_and_load() -> float:
-    """Build (if needed) and load the kernels; returns the seconds taken."""
-    t0 = time.perf_counter()
-    _load()
-    return time.perf_counter() - t0
-
-
-def _check(err: int, name: str) -> None:
-    if err != 0:
-        raise KernelError(f"{name}: CUDA error {err}")
-
-
-def _require(cond: bool, msg: str) -> None:
-    if not cond:
-        raise KernelError(msg)
-
-
-def _check_ids(group_ids: torch.Tensor, n: int) -> None:
-    _require(group_ids.dtype == torch.int32, f"group_ids must be int32, got {group_ids.dtype}")
-    _require(group_ids.dim() == 1 and group_ids.shape[0] == n, "group_ids must be [N]")
-
-
-def _on_cuda(*tensors: torch.Tensor) -> bool:
-    """True when every tensor lies on one CUDA device, False when all lie on
-    the CPU; a mix raises."""
-    kinds = {t.device for t in tensors}
-    _require(len(kinds) == 1, f"tensors on several devices: {sorted(map(str, kinds))}")
-    dev = kinds.pop()
-    _require(dev.type in ("cuda", "cpu"), f"unsupported device {dev}")
-    return dev.type == "cuda"
+LIBRARY = CudaLibrary("groupby.cu", _bind)
 
 
 # ---------------------------------------------------------------- kernel A
@@ -270,7 +189,7 @@ def additive_groupby(
     if r == 0 or n == 0:
         return torch.zeros((r, num_groups), dtype=torch.float32, device=rows.device)
     out = torch.empty((r, num_groups), dtype=torch.float32, device=rows.device)  # zeroed by the entry
-    lib = _load()
+    lib = LIBRARY.load()
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.additive_groupby(
@@ -354,7 +273,7 @@ def minmax_groupby(
     if k == 0:
         return out[:n_min], out[n_min:]
     keys = torch.empty(k * num_groups + 1, dtype=torch.int32, device=vals.device)
-    lib = _load()
+    lib = LIBRARY.load()
     with torch.cuda.device(vals.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.minmax_groupby(

@@ -1,10 +1,14 @@
 """Device operators for the query engine, in PyTorch.
 
-Counterpart of `parseable_tpu/ops/kernels.py`: `lut_mask` (:38) and
-`fused_groupby_block` (:108), with the same signatures and output shapes.
+Counterpart of `parseable_tpu/ops/kernels.py`: `lut_mask` (:38),
+`masked_distinct_bitmap` (:51) and `fused_groupby_block` (:108), with the
+same signatures and output shapes.
 Group-by is dense: group keys arrive pre-combined into one int32 id in
 [0, num_groups), filters arrive as masks, and every reduction weights by the
 mask instead of compacting rows.
+
+`masked_distinct_bitmap` runs on the distinct kernel (K5) of
+`ops/stats_cuda.py`.
 
 `fused_groupby_block` runs one block's whole partial aggregate through the
 hand kernels of `ops/groupby_cuda.py`: the additive rows (row count,
@@ -17,8 +21,9 @@ from __future__ import annotations
 import torch
 
 from parseable_tpu_torch.ops.groupby_cuda import F32_MAX, additive_groupby, minmax_groupby
+from parseable_tpu_torch.ops.stats_cuda import distinct_fold
 
-__all__ = ["F32_MAX", "fused_groupby_block", "lut_mask"]
+__all__ = ["F32_MAX", "fused_groupby_block", "lut_mask", "masked_distinct_bitmap"]
 
 
 def lut_mask(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
@@ -31,6 +36,24 @@ def lut_mask(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
     if codes.dtype != torch.int32:
         codes = codes.to(torch.int32)
     return lut[codes]
+
+
+def masked_distinct_bitmap(
+    group_ids: torch.Tensor,
+    value_codes: torch.Tensor,
+    mask: torch.Tensor,
+    num_groups: int,
+    num_values: int,
+) -> torch.Tensor:
+    """Exact per-group distinct of a dict-encoded column: presence matrix
+    f32 [num_groups, num_values], 1 where a masked-in row of the group holds
+    the value (codes past num_values - 1 count as num_values - 1). A cell no
+    row reaches holds 0; JAX's segment_max leaves -inf there, and both read
+    presence as > 0."""
+    if group_ids.dtype != torch.int32:
+        group_ids = group_ids.to(torch.int32)
+    acc = torch.zeros(num_groups * num_values, dtype=torch.float32, device=mask.device)
+    return distinct_fold(acc, group_ids, value_codes, mask, num_values).view(num_groups, num_values)
 
 
 def fused_groupby_block(

@@ -7,10 +7,11 @@ subclasses it: device kernels produce the partials, and the host finalize
 and `_order_limit` stay shared.
 
 This slice keeps the classic per-block hash aggregate (the JAX package's
-two-phase partials path is later work) and every aggregate except
-`approx_distinct` and approximate percentiles, whose sketches are ported
-with the device sketches (ROADMAP K5/K6). Window functions are later work
-too; both raise ExecError here.
+two-phase partials path is later work) and every aggregate, with the same
+sketches as the JAX engine: approximate percentiles in a `QuantileSketch`
+per group (`query/sketch.py`, exact below 1024 values) and approx_distinct
+in HLL registers (`ops/hll_sketch.py`). Window functions are later work and
+raise ExecError here.
 """
 
 from __future__ import annotations
@@ -20,10 +21,13 @@ from dataclasses import dataclass
 from datetime import UTC, datetime, timedelta
 from typing import Any, Iterator
 
+import numpy as np
 import pyarrow as pa
 import pyarrow.compute as pc
 
+from parseable_tpu_torch.ops.hll_sketch import estimate, merge_registers, registers_add
 from parseable_tpu_torch.query import sql as S
+from parseable_tpu_torch.query.sketch import QuantileSketch
 from parseable_tpu_torch.query.planner import LogicalPlan
 from parseable_tpu_torch.utils.timeutil import parse_duration, parse_rfc3339
 
@@ -499,8 +503,53 @@ def _collect_aggs(e: S.Expr, out: list[AggSpec], counter: list[int]) -> S.Expr:
     return e
 
 
-# aggregates whose sketches are ported with their device kernels
-_LATER_AGGS = ("approx_distinct", "percentile")
+class _FastPathUnavailable(Exception):
+    pass
+
+
+_MAX_COMBINED = 1 << 62  # combined-code capacity guard
+
+
+def _encode_key(arr: pa.ChunkedArray | pa.Array) -> tuple[np.ndarray, pa.Array]:
+    """One key column -> (codes int64, dict); null rows code len(dict).
+    Copy of `parseable_tpu/query/partials.py:_encode_key`."""
+    if isinstance(arr, pa.ChunkedArray):
+        arr = arr.combine_chunks()
+    try:
+        denc = arr if pa.types.is_dictionary(arr.type) else pc.dictionary_encode(arr)
+    except pa.ArrowNotImplementedError as e:
+        raise _FastPathUnavailable(str(e)) from e
+    if isinstance(denc, pa.ChunkedArray):
+        denc = denc.combine_chunks()
+    dictionary = denc.dictionary
+    idx = denc.indices
+    codes = pc.fill_null(idx, 0).to_numpy(zero_copy_only=False).astype(np.int64)
+    if idx.null_count:
+        codes = codes.copy()
+        codes[~np.asarray(idx.is_valid())] = len(dictionary)
+    if dictionary.null_count:
+        # null VALUES inside a dictionary collapse into the null code
+        valid = np.asarray(dictionary.is_valid())
+        clean = dictionary.drop_null()
+        lut = np.concatenate(
+            [np.where(valid, np.cumsum(valid, dtype=np.int64) - 1, len(clean)), [len(clean)]]
+        )
+        codes = lut[codes]
+        dictionary = clean
+    return codes, dictionary
+
+
+def _combine_codes(codes_list: list[np.ndarray], sizes: list[int]) -> np.ndarray:
+    """codes -> single int64, LAST key least-significant."""
+    prod = 1
+    for size in sizes:
+        prod *= size
+        if prod > _MAX_COMBINED:
+            raise _FastPathUnavailable("combined group-code space exceeds int64")
+    combined = codes_list[0]
+    for codes, size in zip(codes_list[1:], sizes[1:]):
+        combined = combined * size + codes
+    return combined
 
 
 @dataclass
@@ -511,6 +560,8 @@ class GroupState:
     maxs: list[Any]
     distincts: list[set]
     sumsqs: list[float]
+    sketches: list[Any]  # QuantileSketch | None per spec
+    hlls: list[Any]  # approx_distinct uint8[HLL_M] registers | None per spec
 
 
 class HashAggregator:
@@ -524,9 +575,6 @@ class HashAggregator:
         self.group_exprs = group_exprs
         self.specs = specs
         self.groups: dict[tuple, GroupState] = {}
-        for spec in specs:
-            if spec.func in _LATER_AGGS:
-                raise ExecError(f"{spec.func} is not ported yet")
 
     def _new_state(self) -> GroupState:
         n = len(self.specs)
@@ -537,8 +585,9 @@ class HashAggregator:
             maxs=[None] * n,
             distincts=[set() for _ in range(n)],
             sumsqs=[0.0] * n,
+            sketches=[None] * n,
+            hlls=[None] * n,
         )
-
 
     def update(self, table: pa.Table, mask: pa.Array | None = None) -> None:
         """Vectorized partial aggregation via pyarrow group_by (the hash
@@ -618,13 +667,66 @@ class HashAggregator:
                     st.count[si] += gcols[f"__a{si}_count"][r]
 
 
+        # percentile sketches: one argsort over combined group codes gives
+        # contiguous per-group value slices; per-GROUP python only
+        pct_specs = [si for si, s in enumerate(self.specs) if s.func == "percentile"]
+        if pct_specs:
+            if key_names:
+                try:
+                    codes_list, sizes = [], []
+                    for k in key_names:
+                        codes, d = _encode_key(tmp.column(k))
+                        codes_list.append(codes)
+                        sizes.append(len(d) + 1)
+                    combined = _combine_codes(codes_list, sizes)
+                except _FastPathUnavailable:
+                    # un-encodable key type or code-space overflow: factorize
+                    # row tuples in Python (rare; correctness over speed)
+                    tuples = list(zip(*[tmp.column(k).to_pylist() for k in key_names]))
+                    index: dict = {}
+                    combined = np.fromiter(
+                        (index.setdefault(tp, len(index)) for tp in tuples), np.int64, n
+                    )
+            else:
+                combined = np.zeros(n, np.int64)
+            order = np.argsort(combined, kind="stable")
+            sorted_codes = combined[order]
+            starts = np.flatnonzero(np.r_[True, sorted_codes[1:] != sorted_codes[:-1]])
+            bounds = np.r_[starts, n]
+            # one key tuple per GROUP (first row of each slice), never per row
+            first_rows = (
+                tmp.select(key_names).take(pa.array(order[starts])).to_pylist()
+                if key_names
+                else [{} for _ in starts]
+            )
+            for si in pct_specs:
+                col = tmp.column(f"__a{si}")
+                vals = np.asarray(
+                    pc.cast(col, pa.float64(), safe=False).to_numpy(zero_copy_only=False)
+                )
+                sorted_vals = vals[order]
+                for bi in range(len(starts)):
+                    lo, hi = bounds[bi], bounds[bi + 1]
+                    key = tuple(first_rows[bi][k] for k in key_names)
+                    st = self.groups.get(key)
+                    if st is None:
+                        st = self._new_state()
+                        self.groups[key] = st
+                    if st.sketches[si] is None:
+                        st.sketches[si] = QuantileSketch()
+                    st.sketches[si].update(sorted_vals[lo:hi])
+                    st.count[si] = st.sketches[si].count
+
         # distinct: unique (keys, value) combos per chunk -> host sets
+        # (exact) or HLL registers (approx_distinct; hashing the uniques
+        # is equivalent to hashing every row)
         for si, spec in enumerate(self.specs):
-            if spec.func not in "count_distinct":
+            if spec.func not in ("count_distinct", "approx_distinct"):
                 continue
             sel = key_names + [f"__a{si}"]
             uniq = tmp.select(sel).group_by(sel, use_threads=False).aggregate([])
             ucols = {name: uniq.column(name).to_pylist() for name in uniq.column_names}
+            approx = spec.func == "approx_distinct"
             for r in range(len(uniq)):
                 key = tuple(ucols[k][r] for k in key_names)
                 v = ucols[f"__a{si}"][r]
@@ -634,8 +736,10 @@ class HashAggregator:
                 if st is None:
                     st = self._new_state()
                     self.groups[key] = st
-                st.distincts[si].add(v)
-
+                if approx:
+                    st.hlls[si] = registers_add(st.hlls[si], (v,))
+                else:
+                    st.distincts[si].add(v)
 
     @staticmethod
     def _copy_state(st: GroupState) -> GroupState:
@@ -647,6 +751,8 @@ class HashAggregator:
             maxs=list(st.maxs),
             distincts=[set(s) for s in st.distincts],
             sumsqs=list(st.sumsqs),
+            sketches=[sk.copy() if sk is not None else None for sk in st.sketches],
+            hlls=[h.copy() if h is not None else None for h in st.hlls],
         )
 
     def merge(self, other: "HashAggregator") -> None:
@@ -664,6 +770,16 @@ class HashAggregator:
                     b = getattr(st, attr)[si]
                     getattr(mine, attr)[si] = b if a is None else (a if b is None else fn(a, b))
                 mine.distincts[si] |= st.distincts[si]
+                if st.hlls[si] is not None:
+                    # merge_registers copies on the None path: registers_add
+                    # mutates in place and the donor must stay untouched
+                    mine.hlls[si] = merge_registers(mine.hlls[si], st.hlls[si])
+                if st.sketches[si] is not None:
+                    if mine.sketches[si] is None:
+                        mine.sketches[si] = st.sketches[si].copy()
+                    else:
+                        mine.sketches[si].merge(st.sketches[si])
+                    mine.count[si] = mine.sketches[si].count
 
     def merge_raw(
         self,
@@ -672,10 +788,19 @@ class HashAggregator:
         sums: list[float],
         mins: list,
         maxs: list,
+        distincts: dict[int, set] | None = None,
         sumsqs: list[float] | None = None,
+        sketches: dict[int, Any] | None = None,
+        hlls: dict[int, Any] | None = None,
     ) -> None:
-        """Merge one group's partials produced by a device kernel, so device
-        blocks and CPU-fallback blocks merge exactly."""
+        """Merge one group's partials produced by a device kernel.
+
+        `distincts` maps spec index -> set of observed values (decoded from
+        the device presence bitmap); `sumsqs` carries stddev/var raw
+        sum-of-squares partials; `sketches` maps spec index -> QuantileSketch
+        built from the device histogram; `hlls` maps spec index -> uint8
+        registers (ownership passes to the aggregator) — so device blocks
+        and CPU-fallback blocks merge exactly."""
         st = self.groups.get(key)
         if st is None:
             st = self._new_state()
@@ -689,6 +814,19 @@ class HashAggregator:
                 a = getattr(st, attr)[si]
                 b = vals[si]
                 getattr(st, attr)[si] = b if a is None else (a if b is None else fn(a, b))
+        for si, vals_set in (distincts or {}).items():
+            st.distincts[si] |= vals_set
+        for si, regs in (hlls or {}).items():
+            if st.hlls[si] is None:
+                st.hlls[si] = regs
+            else:
+                np.maximum(st.hlls[si], regs, out=st.hlls[si])
+        for si, sk in (sketches or {}).items():
+            if st.sketches[si] is None:
+                st.sketches[si] = sk
+            else:
+                st.sketches[si].merge(sk)
+            st.count[si] = st.sketches[si].count
 
     def finalize_value(self, st: GroupState, si: int) -> Any:
         spec = self.specs[si]
@@ -704,6 +842,10 @@ class HashAggregator:
             return st.maxs[si]
         if spec.func == "count_distinct":
             return len(st.distincts[si])
+        if spec.func == "approx_distinct":
+            if st.hlls[si] is None:
+                return 0
+            return int(round(estimate(st.hlls[si])))
         if spec.func in ("stddev", "var"):
             # sample variance (n-1 denominator, DataFusion semantics)
             n = st.count[si]
@@ -712,6 +854,11 @@ class HashAggregator:
             var = (st.sumsqs[si] - st.sums[si] ** 2 / n) / (n - 1)
             var = max(0.0, var)  # guard f.p. negatives
             return math.sqrt(var) if spec.func == "stddev" else var
+        if spec.func == "percentile":
+            sk = st.sketches[si]
+            if sk is None:
+                return None
+            return sk.quantile(spec.param if spec.param is not None else 0.5)
         raise ExecError(f"unknown aggregate {spec.func}")
 
 

@@ -4,7 +4,10 @@ These tests need a CUDA device and skip without one (the kernels have no
 CPU mode). On a CUDA machine: `python -m pytest tests/test_torch_cuda.py`.
 The file imports no JAX, so it runs where only the port's dependencies
 are installed. Tolerances: counts exact (f32 adds of 0/1 below 2^24),
-sums rel 2e-4 (atomics add in a varying order), min/max exact.
+sums rel 2e-4 (atomics add in a varying order), min/max exact; of the
+statistics kernels, K5 (distinct presence, HLL registers) and K6
+(percentile histograms) bit for bit, K7 (centred second moments) rel 2e-4
+of its f64 plain version.
 """
 
 import numpy as np
@@ -254,3 +257,179 @@ def test_cuda_minmax_more_rows_than_registers_hold(cuda, g, n):
         rng.random((10, n)) < 0.8, rng.random(n) < 0.9)]
     for a, b in zip(G.minmax_groupby(*args, g, 4), G.minmax_groupby_plain(*args, g, 4)):
         assert torch.equal(a, b)
+
+
+# --------------------------------------------- K5-K7: the dense fold's statistics
+
+
+def _stat_ids(rng, n: int, g: int, skew: str) -> np.ndarray:
+    """Ids of `skew`: uniform, one crowded group, or five groups with half
+    of the rows in one; a few ids out of range either way."""
+    if skew == "uniform":
+        ids = rng.integers(0, g, n)
+    elif skew == "one-group":
+        ids = np.full(n, g - 1)
+    else:
+        live = rng.choice(g, min(5, g), replace=False)
+        ids = np.where(rng.random(n) < 0.5, live[0], rng.choice(live, n))
+    ids = ids.astype(np.int32)
+    ids[::97], ids[::89] = -1, g
+    return ids
+
+
+SKEWS = ["uniform", "one-group", "five-groups-half-in-one"]
+K5_CASES = [  # (G, cap, hll, regime)
+    (8, 128, False, "shared"), (64, 128, False, "shared"), (2048, 512, False, "global"),
+    (8, 4096, True, "shared"), (64, 4096, True, "global"), (4, 16, False, "global"),
+]
+
+
+@pytest.mark.parametrize("code_dtype", [np.int8, np.int16, np.int32])
+@pytest.mark.parametrize("skew", SKEWS)
+@pytest.mark.parametrize("g,cap,hll,regime", K5_CASES,
+                         ids=[f"G{a}-cap{b}-{'hll' if c else 'presence'}-{d}" for a, b, c, d in K5_CASES])
+def test_cuda_distinct_fold_exact(cuda, g, cap, hll, regime, skew, code_dtype):
+    """K5 bit for bit against its plain version, folding two blocks into
+    the same accumulator; codes past the LUT drop."""
+    from parseable_tpu_torch.ops import stats_cuda as SC
+
+    rng = np.random.default_rng(g + cap)
+    n, v = 70_001, min(100, np.iinfo(code_dtype).max)
+    acc = torch.zeros(g * cap, device=cuda)
+    ref = acc.clone()
+    for _ in range(2):
+        ids = torch.from_numpy(_stat_ids(rng, n, g, skew)).to(cuda)
+        codes = rng.integers(0, v + 3, n).astype(code_dtype)  # v, v+1, v+2: past the LUT
+        codes = torch.from_numpy(codes).to(cuda)
+        mask = torch.from_numpy(rng.random(n) < 0.8).to(cuda)
+        if hll:
+            lut = np.stack([rng.integers(0, cap, v), rng.integers(0, 54, v)]).astype(np.int32)
+        else:
+            lut = rng.integers(0, cap + 4, v).astype(np.int32)  # past cap: clamps to cap - 1
+        lut = torch.from_numpy(lut).to(cuda)
+        before = SC.LAUNCHES["distinct_fold"]
+        SC.distinct_fold(acc, ids, codes, mask, cap, lut, regime=regime)
+        assert SC.LAUNCHES["distinct_fold"] == before + 1
+        ref = SC.distinct_fold_plain(ref, ids, codes, mask, cap, lut)
+    assert torch.equal(acc, ref)
+
+
+@pytest.mark.parametrize("skew", SKEWS)
+@pytest.mark.parametrize("g,regime", [(1, "shared"), (8, "shared"), (24, "shared"), (8, "global"),
+                                      (64, "global"), (2048, "global")])
+def test_cuda_pct_histogram_exact(cuda, g, regime, skew):
+    """K6 bin for bin against its plain version (the same f32 log2 on the
+    card): NaN dropped, +-inf and +-3.4e38 in the extreme bins, zeros in
+    their own slot, negatives on their side; two blocks into one acc."""
+    from parseable_tpu_torch.ops import stats_cuda as SC
+
+    rng = np.random.default_rng(g)
+    n = 70_001
+    acc = torch.zeros(g * SC.DEVICE_NB, device=cuda)
+    ref = acc.clone()
+    for _ in range(2):
+        vals = (rng.random(n) * 500).astype(np.float32)
+        vals[::7] *= -1
+        vals[::11] = 0.0
+        vals[::13] = np.exp(rng.normal(0, 20, len(vals[::13]))).astype(np.float32)
+        vals[5], vals[6], vals[7], vals[8], vals[9] = np.nan, np.inf, -np.inf, 3.4e38, -3.4e38
+        args = [torch.from_numpy(x).to(cuda) for x in
+                (vals, _stat_ids(rng, n, g, skew), rng.random(n) < 0.8)]
+        SC.pct_histogram(acc, *args, regime=regime)
+        ref = SC.pct_histogram_plain(ref, *args)
+    assert torch.equal(acc, ref)
+
+
+@pytest.mark.parametrize("skew", SKEWS)
+@pytest.mark.parametrize("q,g,regime", [(1, 8, "shared"), (2, 64, "shared"), (3, 5000, "shared"),
+                                        (2, 8, "global"), (2, 65536, "global")])
+def test_cuda_centered_m2_matches_f64(cuda, q, g, regime, skew):
+    """K7 within rel 2e-4 of its f64 plain version; a NaN or +-inf value
+    poisons its own group only."""
+    from parseable_tpu_torch.ops import stats_cuda as SC
+
+    rng = np.random.default_rng(q * g)
+    n = 70_001
+    ids = _stat_ids(rng, n, g, skew)
+    vals = (rng.random((q, n)) * 50_000).astype(np.float32)
+    vals[0, ::1001] = 3.0e38 / 1e20  # large but finite squares stay in f32 range
+    valid = rng.random((q, n)) < 0.9
+    mask = rng.random(n) < 0.8
+    args = [torch.from_numpy(x).to(cuda) for x in (ids, vals, valid, mask)]
+    mean = torch.from_numpy((rng.random((q, g)) * 50_000).astype(np.float32)).to(cuda)
+    got = SC.centered_m2(*args, mean, regime=regime)
+    ref = SC.centered_m2_plain(*args, mean)
+    torch.testing.assert_close(got, ref, rtol=2e-4, atol=1e-6)
+    vals[-1, 3], vals[-1, 4] = np.nan, np.inf
+    ids[3], ids[4], valid[-1, 3:5], mask[3:5] = 0, min(1, g - 1), True, True
+    args = [torch.from_numpy(x).to(cuda) for x in (ids, vals, valid, mask)]
+    got = SC.centered_m2(*args, mean, regime=regime)
+    ref = SC.centered_m2_plain(*args, mean)
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+    assert int(torch.isnan(got).sum()) <= 2
+    torch.testing.assert_close(got, ref, rtol=2e-4, atol=1e-6, equal_nan=True)
+
+
+def test_cuda_stats_refuse_a_regime_that_does_not_fit(cuda):
+    from parseable_tpu_torch.ops import stats_cuda as SC
+
+    n = 1024
+    ids = torch.zeros(n, dtype=torch.int32, device=cuda)
+    mask = torch.ones(n, dtype=torch.bool, device=cuda)
+    with pytest.raises(G.KernelError):
+        SC.pct_histogram(torch.zeros(64 * SC.DEVICE_NB, device=cuda), torch.ones(n, device=cuda),
+                         ids, mask, regime="shared")
+    with pytest.raises(G.KernelError):
+        SC.distinct_fold(torch.zeros(64 * 4096, device=cuda), ids,
+                         torch.zeros(n, dtype=torch.int8, device=cuda), mask, 4096, regime="shared")
+    with pytest.raises(G.KernelError):
+        SC.centered_m2(ids, torch.ones((2, n), device=cuda), mask[None].expand(2, n).contiguous(),
+                       mask, torch.zeros((2, 65536), device=cuda), regime="shared")
+
+
+@pytest.mark.parametrize(
+    "sql",
+    [
+        "SELECT status, count(*) AS c, stddev(lat) AS sd, var(lat) AS v, "
+        "approx_percentile_cont(lat, 0.99) AS p99, approx_median(lat) AS p50 FROM t GROUP BY status",
+        "SELECT date_bin(interval '1 minute', p_timestamp) AS t, status, count(distinct host) AS h, "
+        "approx_distinct(host) AS ah, approx_percentile_cont(lat, 0.5) AS p50 FROM t "
+        "WHERE status >= 400 GROUP BY t, status",
+    ],
+    ids=["stddev-var-percentiles", "distinct-hll-percentile"],
+)
+def test_cuda_executor_statistics_match_plain_path(cuda, sql):
+    """The statistics' whole fold on the card against the same executor on
+    the CPU: every new kernel launched, nothing on the CPU engine. stddev
+    and var rel 2e-4 (f32 atomics in another order); percentiles rel 1e-3
+    (the card's log2f and the CPU's log2 may put a value within an ulp of a
+    bin edge into neighbouring bins, which moves the interpolation by a
+    fraction of one bin over its count); counts and distincts exact."""
+    from parseable_tpu_torch.ops import stats_cuda as SC
+    from parseable_tpu_torch.query.executor_cuda import SOURCE_ID_META, GpuQueryExecutor
+    from parseable_tpu_torch.query.planner import plan
+    from parseable_tpu_torch.query.sql import parse_sql
+
+    tables = [
+        _table(s, 20_000).replace_schema_metadata({SOURCE_ID_META: str(s).encode()})
+        for s in (1, 2)
+    ]
+    before = dict(SC.LAUNCHES)
+    on_card = GpuQueryExecutor(plan(parse_sql(sql)), device=cuda)
+    got = on_card.execute(iter(tables)).to_pylist()
+    assert on_card.route_stats["cpu_fallback"] == 0
+    launched = {k: SC.LAUNCHES[k] - before[k] for k in SC.LAUNCHES}
+    assert launched["pct_histogram"] > 0, launched
+    assert launched["centered_m2" if "stddev" in sql else "distinct_fold"] > 0, launched
+    ref = GpuQueryExecutor(plan(parse_sql(sql)), device="cpu").execute(iter(tables)).to_pylist()
+    key = lambda r: tuple(str(r[k]) for k in ("t", "status") if k in r)  # noqa: E731
+    got, ref = sorted(got, key=key), sorted(ref, key=key)
+    assert len(got) == len(ref) > 0
+    for a, b in zip(got, ref):
+        for k in a:
+            if k in ("sd", "v"):
+                assert a[k] == pytest.approx(b[k], rel=2e-4, abs=1e-6)
+            elif k.startswith("p"):
+                assert a[k] == pytest.approx(b[k], rel=1e-3)
+            else:
+                assert a[k] == b[k], (k, a[k], b[k])

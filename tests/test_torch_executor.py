@@ -168,6 +168,10 @@ CASES = {
         "WHERE path LIKE '/p1%' GROUP BY g0 HAVING count(*) > 2"
     ),
     "no-group": "SELECT count(*) AS c0, sum(bytes) AS a0, min(bytes) AS m0 FROM t",
+    # stddev/var (kernel K7) and count(distinct) (kernel K5) on the device;
+    # tests/test_torch_stats.py holds the rest of the statistics
+    "stddev": "SELECT host AS g0, stddev(lat) AS a0 FROM t GROUP BY g0",
+    "distinct": "SELECT host AS g0, count(distinct path) AS c0 FROM t GROUP BY g0",
     "empty-match": "SELECT host AS g0, count(*) AS c0 FROM t WHERE host = 'nope' GROUP BY g0",
 }
 
@@ -187,12 +191,12 @@ def test_executor_matches_jax_engines(name, tables):
 @pytest.mark.parametrize(
     "sql",
     [
-        "SELECT host AS g0, stddev(lat) AS a0 FROM t GROUP BY g0",
-        "SELECT host AS g0, count(distinct path) AS c0 FROM t GROUP BY g0",
+        "SELECT host AS g0, stddev(lat * 2) AS a0 FROM t GROUP BY g0",
+        "SELECT host AS g0, approx_percentile_cont(lat + 1, 0.5) AS a0 FROM t GROUP BY g0",
         "SELECT host AS g0, sum(lat * 2) AS a0 FROM t GROUP BY g0",
         "SELECT host AS g0, path AS g1 FROM t WHERE status >= 400 ORDER BY g0, g1 LIMIT 5",
     ],
-    ids=["stddev", "distinct", "agg-over-expr", "select"],
+    ids=["stddev-over-expr", "percentile-over-expr", "agg-over-expr", "select"],
 )
 def test_outside_the_slice_takes_the_cpu_engine(sql, tables):
     got, routes = port_gpu(sql, tables)

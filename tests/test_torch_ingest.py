@@ -12,7 +12,15 @@ native library when that loads), per-conversion ids, and arrival times
 Then each package reads the lake the other wrote, and both apps answer
 the same HTTP ingest requests with the same bodies.
 
-Every ingest call into the JAX package in the port's tests is in this file.
+Every ingest call into the JAX package in the port's tests is in this file,
+and so is every statistics comparison that needs the JAX package's native
+library (its xxHash64, which approx_distinct hashes with). A fresh checkout
+builds that library in place at its first load, and two xdist workers that
+load it at once can race on the build; kept in this file, those comparisons
+add no worker that loads it. They (the statistics slice, approx_distinct
+and the HLL sketch) sit at the end and share `tests/test_torch_stats.py`'s
+helpers and tolerances.
+
 Tolerances: counts, keys and strings exact; floats rel 2e-4, abs 1e-6 (the
 GPU engine's f32 partials against f64 engines).
 """
@@ -29,10 +37,13 @@ import pyarrow.parquet as pq
 import pytest
 from aiohttp.test_utils import TestClient, TestServer
 
+import parseable_tpu.ops.hll_sketch as JH
+from parseable_tpu import native
 from parseable_tpu.config import Options as JaxOptions
 from parseable_tpu.config import StorageOptions as JaxStorageOptions
 from parseable_tpu.core import Parseable as JaxParseable
 from parseable_tpu.event.format import LogSource as JaxLogSource
+from parseable_tpu.query import executor_tpu as ET
 from parseable_tpu.query.session import QuerySession as JaxSession
 from parseable_tpu.server import app as jax_app
 from parseable_tpu.server.ingest_utils import flatten_json_records as jax_flatten
@@ -40,9 +51,21 @@ from parseable_tpu.server.ingest_utils import push_logs as jax_push
 from parseable_tpu_torch.config import Options, StorageOptions
 from parseable_tpu_torch.core import Parseable
 from parseable_tpu_torch.event.format import LogSource, get_schema_key, xxh64
+from parseable_tpu_torch.ops import hll_sketch as PH
+from parseable_tpu_torch.query import executor_cuda as X
 from parseable_tpu_torch.query.session import QuerySession
 from parseable_tpu_torch.server import app as port_app
 from parseable_tpu_torch.server.ingest_utils import flatten_json_records, push_logs
+from tests.test_torch_stats import (
+    STATS_CASES,
+    assert_stats,
+    jax_cpu,
+    jax_tpu,
+    port_cpu,
+    port_gpu,
+    stats_table,
+    tables,  # noqa: F401 (a fixture)
+)
 
 TOL = dict(rel=2e-4, abs=1e-6)
 STREAM = "weblogs"
@@ -443,3 +466,95 @@ def test_http_ingest_answers_match_the_jax_app(tmp_path):
     assert [s for s, _ in port_out] == [200, 400, 200, 400, 200]
     # the bad-JSON message quotes the parser's position the same way
     assert port_out == jax_out
+
+
+# ------------------------------- the statistics slice, with the native hash
+
+
+@pytest.fixture(scope="module")
+def jax_native_hash():
+    """The JAX package's native library, whose xxHash64 its approx_distinct
+    uses; without it the JAX estimates are blake2b-based and differ from the
+    port's by design, so a comparison would test nothing."""
+    if native._load() is None:
+        pytest.fail("the JAX package's native library did not load: its approx_distinct "
+                    "then hashes with blake2b and cannot be compared with the port's xxHash64")
+    assert native.xxh64(b"abc") == 0x44BC2CF5AD770999
+
+
+def test_hll_luts_registers_and_estimates_match_jax(jax_native_hash):
+    rng = np.random.default_rng(5)
+    dictionary = [f"/api/v1/r{i}" for i in range(3000)] + [17, 2.5, "ü", None]
+    pi, pr = PH.luts_for_dictionary(dictionary)
+    ji, jr = JH.luts_for_dictionary(dictionary)
+    assert np.array_equal(pi, ji) and np.array_equal(pr, jr)
+    assert PH.HLL_M == JH.HLL_M
+    regs_p, regs_j = [], []
+    for n in (10, 300, 5000, 100_000):
+        vals = rng.integers(0, n, 4000).tolist()
+        a, b = PH.registers_add(None, vals), JH.registers_add(None, vals)
+        assert np.array_equal(a, b)
+        assert PH.estimate(a) == JH.estimate(b)
+        regs_p.append(a)
+        regs_j.append(b)
+    assert np.array_equal(PH.estimate_many(np.stack(regs_p)), JH.estimate_many(np.stack(regs_j)))
+    merged = PH.merge_registers(regs_p[0], regs_p[1])
+    assert np.array_equal(merged, JH.merge_registers(regs_j[0], regs_j[1]))
+    assert PH.merge_registers(None, None) is None
+
+
+@pytest.mark.parametrize("name", list(STATS_CASES))
+def test_gpu_engine_statistics_match_both_jax_engines(name, tables, jax_native_hash):
+    sql = STATS_CASES[name]
+    got, routes = port_gpu(sql, tables)
+    assert routes["cpu_fallback"] == 0 and routes["device_cold"] == len(tables), routes
+    assert_stats(jax_tpu(sql, tables), got, sql, 0)
+    assert_stats(jax_cpu(sql, tables), got, sql, 1)
+
+
+def test_mixed_device_and_fallback_scan_merges_exactly(monkeypatch, tables, jax_native_hash):
+    """Once the group space outgrows DENSE_G_MAX the rest of the scan folds
+    on the host, in both packages; the device partials (value sets decoded
+    through the global dictionary, registers, histograms as sketches, M2 as
+    raw moments) merge with the host's."""
+    monkeypatch.setattr(X, "DENSE_G_MAX", 4)  # the first block's 2 hosts (+ null) fit
+    monkeypatch.setattr(ET, "DENSE_G_MAX", 4)
+    sql = (
+        "SELECT host AS g0, count(*) AS c0, stddev(bytes) AS s0, approx_median(x) AS p0, "
+        "count(distinct path) AS d0, approx_distinct(path) AS d1 FROM t GROUP BY g0"
+    )
+    got, routes = port_gpu(sql, tables)
+    assert routes["device_cold"] == 1 and routes["cpu_fallback"] == 2, routes
+    assert_stats(jax_tpu(sql, tables), got, sql, 0)
+    assert_stats(jax_cpu(sql, tables), got, sql, 1)
+
+
+@pytest.mark.parametrize(
+    "sql",
+    [
+        "SELECT host AS g0, count(distinct p_timestamp) AS d0 FROM t "
+        "WHERE p_timestamp >= '2024-05-01T10:30:00Z' GROUP BY g0",
+        "SELECT date_bin(interval '10 minutes', p_timestamp) AS g0, "
+        "approx_distinct(p_timestamp) AS d0 FROM t GROUP BY g0",
+    ],
+    ids=["count-distinct", "approx-distinct"],
+)
+def test_distinct_over_the_timestamp_column_takes_the_cpu_engine(sql, tables, jax_native_hash):
+    """A distinct column is dictionary-encoded; were it the timestamp column,
+    time compares and bins would read its codes as ms. The JAX "tpu" engine
+    answers these queries wrong (no rows, or one bin at the epoch); the port
+    folds such blocks on the host and answers as the CPU engines do."""
+    got, routes = port_gpu(sql, tables)
+    assert routes["device_cold"] == 0 and routes["cpu_fallback"] == len(tables), routes
+    assert_stats(jax_cpu(sql, tables), got, sql, 1)
+
+
+@pytest.mark.parametrize("n", [300, 900, 5000])  # per-group values below and past 1024
+def test_cpu_engine_sketches_match_the_jax_cpu_engine(n, jax_native_hash):
+    tables = [stats_table(80 + i, n, 3) for i in range(3)]
+    sql = (
+        "SELECT host AS g0, approx_percentile_cont(x, 0.9) AS p0, approx_median(lat) AS p1, "
+        "approx_distinct(path) AS d0, approx_distinct(bytes) AS d1, stddev(lat) AS s0 "
+        "FROM t GROUP BY g0"
+    )
+    assert port_cpu(sql, tables) == jax_cpu(sql, tables)
