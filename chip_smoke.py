@@ -15,14 +15,17 @@ percentiles, count(distinct) and approx_distinct on the same lake, through
 the statistics kernels K5-K7 (`parseable_tpu_torch/csrc/stats.cu`). Phase 5
 checks and times each kernel on the inputs the main path gave it (one block
 per shape, recorded in phases 4 and 7) and kernels A and B also on uniform
-inputs of the same shape. Phase 6 runs the HTTP server. Any failed check
+inputs of the same shape; K5 and K6 there in the regime their rule picks
+and in the whole-copy rule's, timed in turns. Phase 6 runs the HTTP
+server. Any failed check
 raises, so the script exits non-zero; it needs one CUDA card and has no CPU
 path.
 
 Kernel times are device times: REPS calls enqueued back to back between two
 CUDA events behind a device spin (`DeviceTimer`), L2-cold (rotating over
 input copies that exceed L2 together) and L2-warm, cross-checked against
-torch.profiler's per-kernel device time.
+torch.profiler's device time per kernel it recorded (after phase 6 it
+records only some of them: `profiler_kernels` counts them).
 
 Output, one line per check, then:
 - the card's name and power limit as nvidia-smi reports them;
@@ -108,8 +111,13 @@ def nvidia_smi() -> str:
 class DeviceTimer:
     """Device time per call: REPS calls enqueued back to back between two
     CUDA events, behind a device spin long enough that the host runs ahead,
-    so host enqueue gaps stay out of the window. Rotating over `copies` sets
-    of inputs that together exceed L2 times the call L2-cold."""
+    so host enqueue gaps stay out of the window. A window whose start event
+    had already passed on the device when the host finished enqueueing it
+    may hold such gaps (the host was slowed, e.g. by other threads holding
+    the GIL): it is timed again behind a spin four times as long, up to
+    three times (`reruns` counts them, `dry` the windows that never got
+    ahead). Rotating over `copies` sets of inputs that together exceed L2
+    times the call L2-cold."""
 
     def __init__(self, torch):
         self.torch = torch
@@ -120,6 +128,8 @@ class DeviceTimer:
         end.record()
         end.synchronize()
         self.cycles_per_ms = 2_000_000 / start.elapsed_time(end)
+        self.reruns = 0
+        self.dry = 0
 
     def _events(self):
         ev = self.torch.cuda.Event
@@ -135,19 +145,30 @@ class DeviceTimer:
             fn(k % copies)
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t) * 1e3  # at least the enqueue time of REPS calls
-        start, end = self._events()
-        torch.cuda._sleep(int((2 * host_ms + 0.1) * self.cycles_per_ms))
-        start.record()
-        for k in range(REPS):
-            fn(k % copies)
-        end.record()
-        end.synchronize()
+        spin_ms = 2 * host_ms + 0.1
+        for attempt in range(4):
+            start, end = self._events()
+            torch.cuda._sleep(int(spin_ms * self.cycles_per_ms))
+            start.record()
+            for k in range(REPS):
+                fn(k % copies)
+            end.record()
+            ahead = not start.query()  # the device still spun when the window was enqueued
+            end.synchronize()
+            if ahead:
+                break
+            if attempt == 3:
+                self.dry += 1
+            else:
+                self.reruns += 1
+                spin_ms *= 4
         return start.elapsed_time(end) / REPS
 
 
 def profiled_ms(torch, fn, names: tuple[str, ...], calls: int = 10):
-    """Device time per call of the kernels whose names hold one of `names`,
-    from torch.profiler over `calls` warm calls; None if it saw none."""
+    """Device time per kernel of the kernels whose names hold one of `names`,
+    from torch.profiler over `calls` warm calls (one kernel a call), and the
+    number of such kernels it recorded; (None, 0) if it saw none."""
     from torch.profiler import ProfilerActivity, profile
 
     fn(0)
@@ -156,11 +177,12 @@ def profiled_ms(torch, fn, names: tuple[str, ...], calls: int = 10):
         for _ in range(calls):
             fn(0)
         torch.cuda.synchronize()
-    us = 0.0
+    us, seen = 0.0, 0
     for ev in prof.key_averages():
         if str(getattr(ev, "device_type", "")).endswith("CUDA") and any(n in ev.key for n in names):
             us += getattr(ev, "self_device_time_total", 0.0)
-    return us / calls / 1e3 if us else None
+            seen += ev.count
+    return (us / seen / 1e3 if seen else None), seen
 
 
 def n_copies(nbytes: float) -> int:
@@ -264,7 +286,7 @@ def kernel_a_case(torch, G, timer, ids, rows, g: int, inputs: str,
         "library_ms": lambda k: lib_out.index_add_(1, *sets[k]),
     }
     res.update(timed(timer, fns, copies))
-    res["profiler_ms"] = profiled_ms(torch, fns["ms"], ("additive",))
+    res["profiler_ms"], res["profiler_kernels"] = profiled_ms(torch, fns["ms"], ("additive",))
     if regime == "tensor":
         ops = 2 * (-(-g // 16) * 16) * G.TC_COLS * n
         res["bound_ms"], res["bound_by"] = bound_ms(nbytes, ops, TC_OPS_PER_S)
@@ -316,7 +338,7 @@ def kernel_b_case(torch, G, timer, ids, vals, valid, mask, g: int, n_min: int,
            "regime": "shared" if k * g * 4 <= G.SMEM_BUDGET else "global",
            "decode": G.minmax_decode(k, g), "max_abs_err": err}
     res.update(timed(timer, fns, copies))
-    res["profiler_ms"] = profiled_ms(torch, fns["ms"], ("minmax",))
+    res["profiler_ms"], res["profiler_kernels"] = profiled_ms(torch, fns["ms"], ("minmax",))
     res["bound_ms"], res["bound_by"] = bound_ms(nbytes, k * n)
     res["copies"] = copies
     return res
@@ -495,7 +517,7 @@ def build_lake(work: Path, seed: int, minutes: int, rows: int):
 # device kernel names of each hand kernel, as the profiler reports them
 KERNEL_SYMBOLS = {
     "additive_groupby": "additive", "minmax_groupby": "minmax",
-    "distinct_fold": "distinct_kernel", "pct_histogram": "pct_hist_kernel",
+    "distinct_fold": "distinct_", "pct_histogram": "pct_hist_",
     "centered_m2": "m2_kernel",
 }
 
@@ -677,20 +699,31 @@ def pct_edge_rows(torch, SC, vals, mask) -> int:
     return int((mask & (vals != 0) & ~torch.isnan(vals) & (up != down)).sum())
 
 
+def whole_copy_regime(SC, kind: str, key: tuple) -> str:
+    """K5's and K6's rule before the compact regime: "shared", a private copy
+    of the whole accumulator a CTA, where it fits, else "global". The compact
+    regime is timed against it."""
+    if kind == "distinct_fold":
+        return "shared" if key[0] * key[1] <= SC.DISTINCT_SHARED_MAX else "global"
+    return "shared" if key[0] * SC.DEVICE_NB * 4 <= SC.SMEM_BUDGET else "global"
+
+
 def stats_case(torch, SC, timer, kind: str, key: tuple, data: tuple, inputs: str,
-               regime: str | None = None) -> dict:
+               regime: str | None = None, turns: tuple[str, ...] = ()) -> dict:
     """One statistics kernel at `key` (as in `stats_inputs`) against its
     plain version on the card (K5 and K6 bit for bit, K7 within rel 2e-4 of
     its f64 plain version), then timed L2-cold and L2-warm beside its plain
     version and one library call on the same inputs, with its bound: the
     block's inputs read once, plus the accumulator entries its rows reach
-    (K5, K6) or K7's means and output."""
+    (K5, K6) or K7's means and output. K5 and K6 optionally also: each
+    regime of `turns` checked bit for bit and timed L2-cold in that order
+    (`turns_us`)."""
     data = tuple(t.cuda().contiguous() for t in data)
     res = {"shape": f"{kind} {key}", "inputs": inputs}
     if kind == "distinct_fold":
         g, cap, hll, n = key
         acc, ids, codes, mask, lut = data
-        res["regime"] = regime or SC.distinct_regime(g, cap)
+        res["regime"] = regime or SC.distinct_regime(g, cap, hll)
         got = SC.distinct_fold(acc.clone(), ids, codes, mask, cap, lut, regime=res["regime"])
         want = SC.distinct_fold_plain(acc, ids, codes, mask, cap, lut)
         check(torch.equal(got, want), f"K5 not exact: {res['shape']}")
@@ -757,9 +790,12 @@ def stats_case(torch, SC, timer, kind: str, key: tuple, data: tuple, inputs: str
                 a[:-1].copy_(acc)
             turn[0] = 0
 
+        def call(reg):
+            return lambda k: SC.distinct_fold(fresh()[:-1], *sets[k][1:4], cap, sets[k][4],
+                                              regime=reg)
+
         fns = {
-            "ms": lambda k: SC.distinct_fold(fresh()[:-1], *sets[k][1:4], cap, sets[k][4],
-                                             regime=res["regime"]),
+            "ms": call(res["regime"]),
             "plain_ms": lambda k: SC.distinct_fold_plain(*sets[k][:4], cap, sets[k][4]),
             "library_ms": lambda k: fresh().scatter_reduce_(0, *lib_in[k], "amax"),
         }
@@ -773,8 +809,11 @@ def stats_case(torch, SC, timer, kind: str, key: tuple, data: tuple, inputs: str
 
         lib_in = [flat_of(d) for d in sets]
         lib_acc = torch.zeros(g * SC.DEVICE_NB + 1, device="cuda")
+        def call(reg):
+            return lambda k: SC.pct_histogram(*sets[k], regime=reg)
+
         fns = {
-            "ms": lambda k: SC.pct_histogram(*sets[k], regime=res["regime"]),
+            "ms": call(res["regime"]),
             "plain_ms": lambda k: SC.pct_histogram_plain(*sets[k]),
             "library_ms": lambda k: lib_acc.index_add_(0, *lib_in[k]),
         }
@@ -793,28 +832,50 @@ def stats_case(torch, SC, timer, kind: str, key: tuple, data: tuple, inputs: str
             "library_ms": lambda k: lib_out.index_add_(1, *lib_in[k]),
         }
         res["library"] = "index_add_ of the centred squares"
+    for reg in dict.fromkeys(turns):  # before K6's timed calls add into acc
+        if kind == "distinct_fold":
+            other = SC.distinct_fold(acc.clone(), ids, codes, mask, cap, lut, regime=reg)
+        else:
+            other = SC.pct_histogram(acc.clone(), vals, ids, mask, regime=reg)
+        check(torch.equal(other, want), f"{kind} {reg} not exact: {res['shape']}")
     res.update(timed(timer, fns, copies, reset))
+    for reg in turns:
+        if reset:
+            reset()
+        res.setdefault("turns_us", {}).setdefault(reg, []).append(timer.ms(call(reg), copies) * 1e3)
     if reset:
         reset()
-    res["profiler_ms"] = profiled_ms(torch, fns["ms"], (KERNEL_SYMBOLS[kind],))
+    res["profiler_ms"], res["profiler_kernels"] = profiled_ms(
+        torch, fns["ms"], (KERNEL_SYMBOLS[kind],))
     res["bound_ms"], res["bound_by"] = bound_ms(nbytes, ops)
     res["copies"] = copies
     return res
 
 
-# phase 2: both regimes of each statistics kernel on uniform inputs, on
-# both sides of K5's rule (stats_cuda.distinct_regime)
+# phase 2: every regime of each statistics kernel on uniform inputs. Compact
+# CTAs of 4,096-8,192 uniform rows touch every group at K5 G = 2048 and
+# 64 x 4096 HLL and K6 G >= 128, more than their copy holds: those check the
+# per-CTA fallback to global atomics.
 STATS_REGIMES = (
     ("distinct_fold", (8, 128, False, N_BLOCK), "shared"),
+    ("distinct_fold", (8, 128, False, N_BLOCK), "compact"),
     ("distinct_fold", (64, 128, False, N_BLOCK), "shared"),
     ("distinct_fold", (64, 128, False, N_BLOCK), "global"),
+    ("distinct_fold", (64, 128, False, N_BLOCK), "compact"),
     ("distinct_fold", (2048, 128, False, N_BLOCK), "global"),
+    ("distinct_fold", (2048, 128, False, N_BLOCK), "compact"),
     ("distinct_fold", (8, 4096, True, N_BLOCK), "shared"),
     ("distinct_fold", (8, 4096, True, N_BLOCK), "global"),
+    ("distinct_fold", (8, 4096, True, N_BLOCK), "compact"),
     ("distinct_fold", (64, 4096, True, N_BLOCK), "global"),
+    ("distinct_fold", (64, 4096, True, N_BLOCK), "compact"),
     ("pct_histogram", (8, N_BLOCK), "shared"),
     ("pct_histogram", (8, N_BLOCK), "global"),
+    ("pct_histogram", (8, N_BLOCK), "compact"),
     ("pct_histogram", (128, N_BLOCK), "global"),
+    ("pct_histogram", (128, N_BLOCK), "compact"),
+    ("pct_histogram", (2048, N_BLOCK), "global"),
+    ("pct_histogram", (2048, N_BLOCK), "compact"),
     ("centered_m2", (2, N_BLOCK, 8), "shared"),
     ("centered_m2", (2, N_BLOCK, 8), "global"),
     ("centered_m2", (2, N_BLOCK, 65536), "global"),
@@ -1300,6 +1361,10 @@ def main() -> int:
     clock = [time.perf_counter()]
 
     def phase_done(name: str) -> None:
+        # (the timer exists from phase 1 on)
+        log(f"phase {name}: timer windows re-run {timer.reruns}, never ahead of the device "
+            f"{timer.dry}")
+        timer.reruns = timer.dry = 0
         now = time.perf_counter()
         seconds[name] = round(now - clock[0], 3)
         clock[0] = now
@@ -1356,6 +1421,9 @@ def main() -> int:
     # -- phase 5: each kernel at the shapes the main path gave it, on one
     # block's real inputs (and kernels A and B on uniform inputs of the same
     # shape)
+    import threading
+
+    log(f"phase 5 threads alive: {[t.name for t in threading.enumerate()]}")
     report = []
     replaces = {
         "additive_groupby": "parseable_tpu/ops/pallas_groupby.py:53",
@@ -1373,16 +1441,21 @@ def main() -> int:
         cases = []
         if name in STATS_KERNELS:
             for key, calls in sorted(stats_shapes[name].items(), key=str):
-                res = stats_case(torch, SC, timer, name, key, stats_inputs_[name][key], "main path")
+                data = stats_inputs_[name][key]
+                turns, old = (), None
+                if name != "centered_m2":
+                    # the rule's pick against the whole-copy rule's, in turns, on the
+                    # main path's own inputs
+                    new, old = (SC.distinct_regime(*key[:3]) if name == "distinct_fold"
+                                else SC.pct_regime(key[0])), whole_copy_regime(SC, name, key)
+                    turns = (new, old, old, new) if new != old else ()
+                res = stats_case(torch, SC, timer, name, key, data, "main path", turns=turns)
                 res["main_path_calls"] = calls
                 log(f"phase 5 {name} {json.dumps(res)}")
                 cases.append(res)
-                if name == "distinct_fold" and key[0] * key[1] * 4 <= G.SMEM_BUDGET:
-                    # both sides of K5's rule on the main path's own inputs
-                    other = "global" if res["regime"] == "shared" else "shared"
-                    alt = stats_case(torch, SC, timer, name, key, stats_inputs_[name][key],
-                                     "main path", regime=other)
-                    log(f"phase 5 {name} (the rule's other regime) {json.dumps(alt)}")
+                if turns:
+                    alt = stats_case(torch, SC, timer, name, key, data, "main path", regime=old)
+                    log(f"phase 5 {name} (the whole-copy rule's regime) {json.dumps(alt)}")
         for key, calls in sorted(shapes.get(name, {}).items()):
             for kind in ("main path", "uniform"):
                 if name == "additive_groupby":

@@ -22,6 +22,8 @@ constexpr unsigned kFull = 0xffffffffu;
 struct DeviceInfo {
   int sms = 0;
   int smem_optin = 0;
+  int smem_per_sm = 0;    // shared memory of one SM
+  int smem_reserved = 0;  // of it, reserved by the system for each CTA
 };
 
 std::mutex g_mu;
@@ -36,6 +38,8 @@ DeviceInfo device_info(int dev) {
   DeviceInfo info;
   cudaDeviceGetAttribute(&info.sms, cudaDevAttrMultiProcessorCount, dev);
   cudaDeviceGetAttribute(&info.smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaDeviceGetAttribute(&info.smem_per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  cudaDeviceGetAttribute(&info.smem_reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
   g_info[dev] = info;
   return info;
 }

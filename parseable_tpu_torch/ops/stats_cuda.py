@@ -14,10 +14,13 @@ counterpart of one XLA program of the JAX dense fold
 - `centered_m2(group_ids, vals, valid, mask, mean)` — K7, per-group centred
   second moments of one block for stddev/var (`_block_m2` :889).
 
-Each runs in one of two regimes, "shared" (a per-CTA private accumulator
-in shared memory) or "global" (atomics straight into the accumulator),
-chosen per shape by its `*_regime` rule or forced with `regime=`. Beside each wrapper is its plain PyTorch version (`*_plain`,
-functional: it returns a new tensor). A wrapper given CPU tensors computes
+Each runs in a regime chosen per shape by its `*_regime` rule or forced
+with `regime=`: "shared" (a per-CTA private accumulator in shared memory),
+"global" (atomics straight into the accumulator) and, for K5 and K6,
+"compact" (each CTA folds a contiguous chunk into a shared copy of only the
+groups its rows reach, or with global atomics where they do not fit).
+Beside each wrapper is its plain PyTorch version (`*_plain`, functional: it
+returns a new tensor). A wrapper given CPU tensors computes
 the plain version; given CUDA tensors it launches its kernel or raises
 `KernelError`. `LAUNCHES` counts kernel launches per wrapper.
 """
@@ -42,14 +45,16 @@ from parseable_tpu_torch.query.sketch import BINS, DEVICE_NB, LOG_HI, LOG_LO, _S
 
 __all__ = ["KernelError", "LAUNCHES", "centered_m2", "distinct_fold", "pct_histogram"]
 
-REGIMES = {"shared": 0, "global": 1}
+REGIMES = {"shared": 0, "global": 1, "compact": 2}
 # the JAX fold's f32 constants of the percentile slot (executor_tpu.py:2962-2970)
 PCT_LO = float(np.float32(LOG_LO))
 PCT_HI = float(np.float32(LOG_HI - 1e-6))
 PCT_SCALE = float(np.float32(_SCALE))
 F32_TINY = float(np.finfo(np.float32).tiny)  # the least normal f32
 _NO_LUT_V = 2**31 - 1  # without a LUT every non-negative code is a slot (clamped)
-DISTINCT_SHARED_MAX = 8192  # entries of K5's private copy (distinct_regime)
+COMPACT_G_MAX = 65536  # groups the compact regime's bitmap covers (csrc kBitmapG)
+COMPACT_PRESENCE_WORDS = 1024  # presence words a compact CTA holds (csrc kPresenceWords)
+DISTINCT_SHARED_MAX = 8192  # entries of K5's whole private copy (the earlier rule)
 
 # kernel launches per wrapper (plain integers; reset by whoever measures)
 LAUNCHES = {"distinct_fold": 0, "pct_histogram": 0, "centered_m2": 0}
@@ -68,11 +73,16 @@ def _bind(lib: ctypes.CDLL) -> None:
 LIBRARY = CudaLibrary("stats.cu", _bind)
 
 
+def _known(regime: str | None) -> None:
+    require(regime is None or regime in REGIMES, f"unknown regime {regime!r}")
+
+
 def _mode(regime: str, nbytes: int) -> int:
-    """The C entry's mode for `regime`; raises for a private accumulator of
-    `nbytes` that shared memory cannot hold."""
-    require(regime in REGIMES, f"unknown regime {regime!r}")
-    require(regime == "global" or nbytes <= SMEM_BUDGET, f"{nbytes} bytes do not fit shared memory")
+    """The C entry's mode for `regime`; raises for a "shared" accumulator of
+    `nbytes` that shared memory cannot hold (a "compact" CTA decides on the
+    card whether its groups fit)."""
+    _known(regime)
+    require(regime != "shared" or nbytes <= SMEM_BUDGET, f"{nbytes} bytes do not fit shared memory")
     return REGIMES[regime]
 
 
@@ -84,13 +94,20 @@ def _spare(acc: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------- K5
 
 
-def distinct_regime(num_groups: int, cap: int) -> str:
-    """"shared" up to DISTINCT_SHARED_MAX entries, else "global". Timed on
-    an H100 (PERF.md): on the main path's presence inputs, 64 x 128 entries
-    of which a minute file reaches 192, shared took 13 us and global 99 us
-    (every row re-reads a few hot entries from L2); past the limit each CTA
-    zeroes and flushes a large copy and holds an SM alone, and an HLL file
-    of 8 x 4,096 registers took 67 us shared against 18 us global."""
+def distinct_regime(num_groups: int, cap: int, hll: bool = False) -> str:
+    """"compact" for HLL registers up to COMPACT_G_MAX groups, and for
+    presence bits where a CTA's copy holds every group's bits (up to
+    COMPACT_PRESENCE_WORDS words); past those the earlier rule: "shared" (a
+    whole copy of the G * cap entries a CTA) up to 8,192 entries, else
+    "global". On an H100 (PERF.md) compact beat the earlier regimes at the
+    main path's shapes (presence 64 x 128, HLL 64 x 4,096); presence blocks
+    whose CTAs each touch more groups than the copy holds fold faster in
+    "global"; HLL blocks so spread do too, but they share the main path's
+    shape."""
+    if num_groups > COMPACT_G_MAX:
+        return "global"
+    if hll or num_groups * ((cap + 31) // 32) <= COMPACT_PRESENCE_WORDS:
+        return "compact"
     return "shared" if num_groups * cap <= DISTINCT_SHARED_MAX else "global"
 
 
@@ -150,12 +167,14 @@ def distinct_fold(
     if lut is not None:
         require(lut.dtype == torch.int32 and lut.dim() in (1, 2) and (lut.dim() == 1 or lut.shape[0] == 2),
                 "lut must be int32 [V] or [2, V]")
+    _known(regime)
     tensors = (acc, group_ids, codes, mask) + ((lut,) if lut is not None else ())
     if not on_cuda(*tensors):
         return acc.copy_(distinct_fold_plain(acc, group_ids, codes, mask, cap, lut))
     require(all(t.is_contiguous() for t in tensors), "inputs must be contiguous")
     g = acc.numel() // cap
-    mode = _mode(regime or distinct_regime(g, cap), g * cap * 4)
+    hll = lut is not None and lut.dim() == 2
+    mode = _mode(regime or distinct_regime(g, cap, hll), g * cap * 4)
     if lut is None:
         idx_ptr, rank_ptr, v = None, None, _NO_LUT_V
     elif lut.dim() == 1:
@@ -178,9 +197,11 @@ def distinct_fold(
 
 
 def pct_regime(num_groups: int) -> str:
-    """"shared" where G histograms fit shared memory (G <= 24), else
-    "global" (at G = 8 on an H100: 19 us shared, 76 us global)."""
-    return "shared" if num_groups * DEVICE_NB * 4 <= SMEM_BUDGET else "global"
+    """"compact" up to COMPACT_G_MAX groups, else "global". On an H100
+    (PERF.md) it beat the earlier "shared" and "global" at the main path's
+    G = 8 and G = 64 and matched "global" where every CTA's rows spread over
+    more groups than its copy holds; both stay selectable with `regime=`."""
+    return "compact" if num_groups <= COMPACT_G_MAX else "global"
 
 
 def pct_bins(mag: torch.Tensor) -> torch.Tensor:
@@ -228,6 +249,7 @@ def pct_histogram(
     n = vals.shape[0]
     check_ids(group_ids, n)
     require(mask.dtype == torch.bool and tuple(mask.shape) == (n,), "mask must be bool [N]")
+    _known(regime)
     if not on_cuda(acc, vals, group_ids, mask):
         return acc.copy_(pct_histogram_plain(acc, vals, group_ids, mask))
     require(all(t.is_contiguous() for t in (acc, vals, group_ids, mask)), "inputs must be contiguous")

@@ -281,6 +281,10 @@ SKEWS = ["uniform", "one-group", "five-groups-half-in-one"]
 K5_CASES = [  # (G, cap, hll, regime)
     (8, 128, False, "shared"), (64, 128, False, "shared"), (2048, 512, False, "global"),
     (8, 4096, True, "shared"), (64, 4096, True, "global"), (4, 16, False, "global"),
+    # compact: on uniform ids the CTAs of G = 2048 x 512 and of 8 x 4096 HLL
+    # touch more groups than their copy holds and fold with global atomics
+    (8, 128, False, "compact"), (64, 128, False, "compact"), (2048, 512, False, "compact"),
+    (8, 4096, True, "compact"), (64, 4096, True, "compact"), (4, 16, False, "compact"),
 ]
 
 
@@ -316,7 +320,8 @@ def test_cuda_distinct_fold_exact(cuda, g, cap, hll, regime, skew, code_dtype):
 
 @pytest.mark.parametrize("skew", SKEWS)
 @pytest.mark.parametrize("g,regime", [(1, "shared"), (8, "shared"), (24, "shared"), (8, "global"),
-                                      (64, "global"), (2048, "global")])
+                                      (64, "global"), (2048, "global"), (1, "compact"),
+                                      (8, "compact"), (64, "compact"), (2048, "compact")])
 def test_cuda_pct_histogram_exact(cuda, g, regime, skew):
     """K6 bin for bin against its plain version (the same f32 log2 on the
     card): NaN dropped, +-inf and +-3.4e38 in the extreme bins, zeros in
@@ -338,6 +343,121 @@ def test_cuda_pct_histogram_exact(cuda, g, regime, skew):
         SC.pct_histogram(acc, *args, regime=regime)
         ref = SC.pct_histogram_plain(ref, *args)
     assert torch.equal(acc, ref)
+
+
+def _pct_block(rng, n: int, g: int, skew: str):
+    vals = (rng.random(n) * 500).astype(np.float32)
+    vals[::7] *= -1
+    vals[::11] = 0.0
+    vals[5], vals[6], vals[7] = np.nan, np.inf, -3.4e38
+    return vals, _stat_ids(rng, n, g, skew), rng.random(n) < 0.8
+
+
+@pytest.mark.parametrize("offset", ["all", "vals", "ids", "mask"])
+@pytest.mark.parametrize("regime", ["compact", "shared", "global"])
+def test_cuda_pct_histogram_unaligned_inputs(cuda, regime, offset):
+    """K6 on inputs that start one element past a 16-byte boundary: all of
+    them (the compact regime's scalar head, then vector loads) or one (no
+    common phase: scalar loads); N = 70,001 rows, a ragged tail."""
+    from parseable_tpu_torch.ops import stats_cuda as SC
+
+    rng = np.random.default_rng(23)
+    n, g = 70_001, 8
+    full = [torch.from_numpy(x).to(cuda)
+            for x in _pct_block(rng, n + 1, g, "five-groups-half-in-one")]
+    names = ("vals", "ids", "mask")
+    args = [t[1:] if offset in ("all", name) else t[:-1] for t, name in zip(full, names)]
+    assert any(t.data_ptr() % 16 for t in args)
+    acc = torch.zeros(g * SC.DEVICE_NB, device=cuda)
+    SC.pct_histogram(acc, *args, regime=regime)
+    assert torch.equal(acc, SC.pct_histogram_plain(torch.zeros_like(acc), *args))
+
+
+@pytest.mark.parametrize("offset", ["all", "ids", "codes", "mask"])
+@pytest.mark.parametrize("code_dtype", [np.int8, np.int16, np.int32])
+@pytest.mark.parametrize("hll", [False, True], ids=["presence", "hll"])
+def test_cuda_distinct_fold_compact_unaligned_inputs(cuda, hll, code_dtype, offset):
+    """K5's compact regime on inputs one element past a 16-byte boundary, all
+    of them or one; N = 70,001 rows."""
+    from parseable_tpu_torch.ops import stats_cuda as SC
+
+    rng = np.random.default_rng(29)
+    n, g, cap, v = 70_001, 64, 4096 if hll else 128, 100
+    ids = torch.from_numpy(_stat_ids(rng, n + 1, g, "five-groups-half-in-one")).to(cuda)
+    codes = torch.from_numpy(rng.integers(0, v + 3, n + 1).astype(code_dtype)).to(cuda)
+    mask = torch.from_numpy(rng.random(n + 1) < 0.8).to(cuda)
+    lut = (np.stack([rng.integers(0, cap, v), rng.integers(0, 54, v)]) if hll
+           else rng.integers(0, cap + 4, v))
+    lut = torch.from_numpy(lut.astype(np.int32)).to(cuda)
+    args = [t[1:] if offset in ("all", name) else t[:-1]
+            for t, name in zip((ids, codes, mask), ("ids", "codes", "mask"))]
+    acc = torch.zeros(g * cap, device=cuda)
+    SC.distinct_fold(acc, *args, cap, lut, regime="compact")
+    assert torch.equal(acc, SC.distinct_fold_plain(torch.zeros_like(acc), *args, cap, lut))
+
+
+@pytest.mark.parametrize("g", [1, 64])
+def test_cuda_pct_histogram_compact_bin_past_u16(cuda, g):
+    """One group and one bin get 100,003 rows in one call: the compact
+    regime's u16 counters hold a CTA's chunk (at most 8,192 rows), so the
+    bin's count is exact in f32 however many CTAs add to it."""
+    from parseable_tpu_torch.ops import stats_cuda as SC
+
+    n = 100_003
+    vals = torch.full((n,), 300.0, device=cuda)
+    ids = torch.full((n,), g - 1, dtype=torch.int32, device=cuda)
+    mask = torch.ones(n, dtype=torch.bool, device=cuda)
+    acc = SC.pct_histogram(torch.zeros(g * SC.DEVICE_NB, device=cuda), vals, ids, mask,
+                           regime="compact")
+    assert acc.max().item() == n and int((acc != 0).sum()) == 1
+    assert torch.equal(acc, SC.pct_histogram_plain(torch.zeros_like(acc), vals, ids, mask))
+
+
+@pytest.mark.parametrize("n", [70_001, 3 * (1 << 20) + 5])
+def test_cuda_compact_long_blocks(cuda, n):
+    """K5 and K6 compact on a ragged block and on one long enough for two
+    quads a thread and more CTAs than the card holds at once."""
+    from parseable_tpu_torch.ops import stats_cuda as SC
+
+    rng = np.random.default_rng(n)
+    vals, ids, mask = (torch.from_numpy(x).to(cuda) for x in _pct_block(rng, n, 64, "uniform"))
+    ids = torch.where(ids >= 0, ids % 3 * 21, ids)  # three groups of 64, as a minute file
+    acc = SC.pct_histogram(torch.zeros(64 * SC.DEVICE_NB, device=cuda), vals, ids, mask)
+    assert torch.equal(acc, SC.pct_histogram_plain(torch.zeros_like(acc), vals, ids, mask))
+    codes = torch.from_numpy(rng.integers(0, 100, n).astype(np.int8)).to(cuda)
+    lut = torch.from_numpy(np.stack([rng.integers(0, 4096, 100), rng.integers(0, 54, 100)])
+                           .astype(np.int32)).to(cuda)
+    hll = SC.distinct_fold(torch.zeros(64 * 4096, device=cuda), ids, codes, mask, 4096, lut)
+    want = SC.distinct_fold_plain(torch.zeros_like(hll), ids, codes, mask, 4096, lut)
+    assert torch.equal(hll, want)
+
+
+@pytest.mark.parametrize("g", [128, 2048])
+def test_cuda_compact_partial_overflow(cuda, g):
+    """Compact CTAs whose rows reach a few groups until the last eighth of
+    each 4,096 rows spreads over all G: some warps finish their marks before
+    the count passes what the copy holds and fold after the barrier, others
+    stop marking and fold at once. K5 (HLL, presence) and K6 bit for bit."""
+    from parseable_tpu_torch.ops import stats_cuda as SC
+
+    rng = np.random.default_rng(g)
+    n = 1 << 20
+    i = np.arange(n)
+    ids = np.where(i % 4096 >= 3584, rng.integers(0, g, n), i // 4096 % 3).astype(np.int32)
+    vals = (rng.random(n) * 500).astype(np.float32)
+    mask = rng.random(n) < 0.9
+    t_ids, t_vals, t_mask = (torch.from_numpy(x).to(cuda) for x in (ids, vals, mask))
+    acc = SC.pct_histogram(torch.zeros(g * SC.DEVICE_NB, device=cuda), t_vals, t_ids, t_mask,
+                           regime="compact")
+    assert torch.equal(acc, SC.pct_histogram_plain(torch.zeros_like(acc), t_vals, t_ids, t_mask))
+    codes = torch.from_numpy(rng.integers(0, 100, n).astype(np.int8)).to(cuda)
+    for cap, lut in ((4096, np.stack([rng.integers(0, 4096, 100), rng.integers(0, 54, 100)])),
+                     (128, rng.integers(0, 128, 100))):
+        t_lut = torch.from_numpy(lut.astype(np.int32)).to(cuda)
+        got = SC.distinct_fold(torch.zeros(g * cap, device=cuda), t_ids, codes, t_mask, cap, t_lut,
+                               regime="compact")
+        want = SC.distinct_fold_plain(torch.zeros_like(got), t_ids, codes, t_mask, cap, t_lut)
+        assert torch.equal(got, want), cap
 
 
 @pytest.mark.parametrize("skew", SKEWS)

@@ -391,7 +391,19 @@ def test_stats_wrappers_compute_plain_on_cpu_and_check_inputs():
     SC.pct_histogram(hist, torch.ones(n), ids, mask)
     assert hist.sum() == n
     assert SC.centered_m2(ids, torch.ones((1, n)), mask[None], mask, torch.ones((1, g))).sum() == 0
+    # a forced regime on CPU tensors computes the plain version too
+    codes = (torch.arange(n) % 8).to(torch.int8)
+    compact = SC.distinct_fold(torch.zeros(g * 8), ids, codes, mask, 8, regime="compact")
+    assert torch.equal(compact, SC.distinct_fold_plain(torch.zeros(g * 8), ids, codes, mask, 8))
+    vals = torch.linspace(-3, 700, n)
+    SC.pct_histogram(hist, vals, ids, mask, regime="compact")
+    ones = SC.pct_histogram_plain(torch.zeros(g * SC.DEVICE_NB), torch.ones(n), ids, mask)
+    assert torch.equal(hist, SC.pct_histogram_plain(ones, vals, ids, mask))
     assert SC.LAUNCHES == before
+    with pytest.raises(SC.KernelError):  # a regime the wrappers do not know
+        SC.distinct_fold(acc, ids, codes, mask, 8, regime="private")
+    with pytest.raises(SC.KernelError):
+        SC.pct_histogram(hist, vals, ids, mask, regime="bitmap")
     with pytest.raises(SC.KernelError):  # float codes
         SC.distinct_fold(acc, ids, torch.zeros(n), mask, 8)
     with pytest.raises(SC.KernelError):  # accumulator not a multiple of cap
@@ -407,9 +419,16 @@ def test_stats_wrappers_compute_plain_on_cpu_and_check_inputs():
 @pytest.mark.parametrize(
     "rule,args,regime",
     [
-        ("distinct", (8, 128), "shared"), ("distinct", (64, 128), "shared"),
-        ("distinct", (65, 128), "global"), ("distinct", (8, 4096), "global"),
-        ("pct", (24,), "shared"), ("pct", (25,), "global"),
+        ("distinct", (8, 128), "compact"), ("distinct", (64, 128), "compact"),
+        ("distinct", (65, 128), "compact"), ("distinct", (8, 4096), "compact"),
+        ("distinct", (64, 4096), "global"), ("distinct", (65536, 128), "global"),
+        ("distinct", (65537, 128), "global"), ("distinct", (1 << 19, 32), "global"),
+        ("distinct", (256, 128), "compact"), ("distinct", (257, 128), "global"),
+        ("distinct", (2048, 4), "shared"), ("distinct", (1024, 32), "compact"),
+        ("distinct", (64, 4096, True), "compact"), ("distinct", (8, 4096, True), "compact"),
+        ("distinct", (65536, 16, True), "compact"), ("distinct", (65537, 16, True), "global"),
+        ("pct", (24,), "compact"), ("pct", (25,), "compact"), ("pct", (8,), "compact"),
+        ("pct", (64,), "compact"), ("pct", (8188,), "compact"), ("pct", (65537,), "global"),
         ("m2", (2, 8), "shared"), ("m2", (2, 65536), "global"),
     ],
 )
