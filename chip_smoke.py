@@ -15,11 +15,11 @@ percentiles, count(distinct) and approx_distinct on the same lake, through
 the statistics kernels K5-K7 (`parseable_tpu_torch/csrc/stats.cu`). Phase 5
 checks and times each kernel on the inputs the main path gave it (one block
 per shape, recorded in phases 4 and 7) and kernels A and B also on uniform
-inputs of the same shape; K5 and K6 there in the regime their rule picks
-and in the whole-copy rule's, timed in turns. Phase 6 runs the HTTP
-server. Any failed check
-raises, so the script exits non-zero; it needs one CUDA card and has no CPU
-path.
+inputs of the same shape; K5-K7 there in the regime their rule picks and
+in the whole-copy rule's (a whole copy a CTA), timed in turns, K7 also
+with a NaN and an inf value that must stay in their own groups. Phase 6
+runs the HTTP server. Any failed check raises, so the script exits
+non-zero; it needs one CUDA card and has no CPU path.
 
 Kernel times are device times: REPS calls enqueued back to back between two
 CUDA events behind a device spin (`DeviceTimer`), L2-cold (rotating over
@@ -518,7 +518,7 @@ def build_lake(work: Path, seed: int, minutes: int, rows: int):
 KERNEL_SYMBOLS = {
     "additive_groupby": "additive", "minmax_groupby": "minmax",
     "distinct_fold": "distinct_", "pct_histogram": "pct_hist_",
-    "centered_m2": "m2_kernel",
+    "centered_m2": "m2_",
 }
 
 
@@ -700,12 +700,60 @@ def pct_edge_rows(torch, SC, vals, mask) -> int:
 
 
 def whole_copy_regime(SC, kind: str, key: tuple) -> str:
-    """K5's and K6's rule before the compact regime: "shared", a private copy
-    of the whole accumulator a CTA, where it fits, else "global". The compact
-    regime is timed against it."""
+    """The rule before the compact regime: "shared", a private copy of
+    the whole accumulator (K7: of the [Q, G] sums and means) a CTA, where it
+    fits, else "global". The compact regime is timed against it."""
     if kind == "distinct_fold":
         return "shared" if key[0] * key[1] <= SC.DISTINCT_SHARED_MAX else "global"
+    if kind == "centered_m2":
+        return "shared" if 2 * key[0] * key[2] * 4 <= SC.SMEM_BUDGET else "global"
     return "shared" if key[0] * SC.DEVICE_NB * 4 <= SC.SMEM_BUDGET else "global"
+
+
+def rule_regime(SC, kind: str, key: tuple) -> str:
+    """The regime the wrapper's rule picks at `key` (as in `stats_inputs`)."""
+    if kind == "distinct_fold":
+        return SC.distinct_regime(*key[:3])
+    if kind == "centered_m2":
+        return SC.m2_regime(key[0], key[2])
+    return SC.pct_regime(key[0])
+
+
+def m2_close(torch, got, want) -> bool:
+    """K7 against its f64 plain version: NaN and +-inf in the same cells,
+    the finite cells within rel 2e-4."""
+    fin = torch.isfinite(want)
+    return (torch.equal(torch.isnan(got), torch.isnan(want))
+            and torch.equal(torch.isinf(got), torch.isinf(want))
+            and bool(torch.allclose(got[fin], want[fin], rtol=REL_TOL, atol=ABS_TOL)))
+
+
+def m2_poisoned(torch, ids, vals, valid, mask, g: int):
+    """The K7 inputs with a NaN in one live row and +inf in a live row of
+    another group (value row Q - 1): each must poison its own group only."""
+    live = mask & valid[-1] & (ids >= 0) & (ids < g)
+    rows = torch.nonzero(live).flatten()
+    first = int(rows[0])
+    other = rows[ids[rows] != ids[first]]
+    vals = vals.clone()
+    vals[-1, first] = math.nan
+    if other.numel():
+        vals[-1, int(other[0])] = math.inf
+    return vals
+
+
+_SUM_MS: dict[int, float] = {}
+
+
+def stream_sum_ms(torch, timer, nbytes: float) -> float:
+    """A yardstick: one torch.sum over float32 data of `nbytes` (the card's
+    reduction reading as many bytes once), L2-cold."""
+    key = int(nbytes)
+    if key not in _SUM_MS:
+        copies = n_copies(nbytes)
+        xs = [torch.rand(max(1, key // 4), device="cuda") for _ in range(copies)]
+        _SUM_MS[key] = timer.ms(lambda k: torch.sum(xs[k]), copies)
+    return _SUM_MS[key]
 
 
 def stats_case(torch, SC, timer, kind: str, key: tuple, data: tuple, inputs: str,
@@ -715,8 +763,10 @@ def stats_case(torch, SC, timer, kind: str, key: tuple, data: tuple, inputs: str
     its f64 plain version), then timed L2-cold and L2-warm beside its plain
     version and one library call on the same inputs, with its bound: the
     block's inputs read once, plus the accumulator entries its rows reach
-    (K5, K6) or K7's means and output. K5 and K6 optionally also: each
-    regime of `turns` checked bit for bit and timed L2-cold in that order
+    (K5, K6) or K7's means and output, and one torch.sum over as many bytes
+    (`sum_ms`). K7 also on a copy of its inputs with a NaN and an inf value
+    (each in its own group only). Optionally also: each regime of `turns`
+    checked (K5 and K6 bit for bit) and timed L2-cold in that order
     (`turns_us`)."""
     data = tuple(t.cuda().contiguous() for t in data)
     res = {"shape": f"{kind} {key}", "inputs": inputs}
@@ -748,10 +798,14 @@ def stats_case(torch, SC, timer, kind: str, key: tuple, data: tuple, inputs: str
         res["regime"] = regime or SC.m2_regime(q, g)
         got = SC.centered_m2(ids, vals, valid, mask, mean, regime=res["regime"])
         want = SC.centered_m2_plain(ids, vals, valid, mask, mean)
-        fin = torch.isfinite(want)
-        check(torch.equal(torch.isnan(got), torch.isnan(want))
-              and bool(torch.allclose(got[fin], want[fin], rtol=REL_TOL, atol=ABS_TOL)),
-              f"K7 disagrees with its f64 plain version: {res['shape']}")
+        check(m2_close(torch, got, want), f"K7 disagrees with its f64 plain version: {res['shape']}")
+        poisoned = m2_poisoned(torch, ids, vals, valid, mask, g)
+        want_poisoned = SC.centered_m2_plain(ids, poisoned, valid, mask, mean)
+        for reg in dict.fromkeys((res["regime"], *turns)):
+            got_poisoned = SC.centered_m2(ids, poisoned, valid, mask, mean, regime=reg)
+            check(m2_close(torch, got_poisoned, want_poisoned)
+                  and int((~torch.isfinite(got_poisoned)).sum()) <= 2,
+                  f"K7 {reg}: a NaN or inf reached another group: {res['shape']}")
         nbytes = n * (4 + 1 + 5 * q) + 2 * q * g * 4
         ops = 3 * q * n
     if kind != "centered_m2":
@@ -826,8 +880,12 @@ def stats_case(torch, SC, timer, kind: str, key: tuple, data: tuple, inputs: str
 
         lib_in = [flat_of(d) for d in sets]
         lib_out = torch.zeros(q, g, device="cuda")
+
+        def call(reg):
+            return lambda k: SC.centered_m2(*sets[k], regime=reg)
+
         fns = {
-            "ms": lambda k: SC.centered_m2(*sets[k], regime=res["regime"]),
+            "ms": call(res["regime"]),
             "plain_ms": lambda k: SC.centered_m2_plain(*sets[k]),
             "library_ms": lambda k: lib_out.index_add_(1, *lib_in[k]),
         }
@@ -835,8 +893,12 @@ def stats_case(torch, SC, timer, kind: str, key: tuple, data: tuple, inputs: str
     for reg in dict.fromkeys(turns):  # before K6's timed calls add into acc
         if kind == "distinct_fold":
             other = SC.distinct_fold(acc.clone(), ids, codes, mask, cap, lut, regime=reg)
-        else:
+        elif kind == "pct_histogram":
             other = SC.pct_histogram(acc.clone(), vals, ids, mask, regime=reg)
+        else:
+            other = SC.centered_m2(ids, vals, valid, mask, mean, regime=reg)
+            check(m2_close(torch, other, want), f"K7 {reg} disagrees: {res['shape']}")
+            continue
         check(torch.equal(other, want), f"{kind} {reg} not exact: {res['shape']}")
     res.update(timed(timer, fns, copies, reset))
     for reg in turns:
@@ -848,6 +910,7 @@ def stats_case(torch, SC, timer, kind: str, key: tuple, data: tuple, inputs: str
     res["profiler_ms"], res["profiler_kernels"] = profiled_ms(
         torch, fns["ms"], (KERNEL_SYMBOLS[kind],))
     res["bound_ms"], res["bound_by"] = bound_ms(nbytes, ops)
+    res["sum_ms"] = stream_sum_ms(torch, timer, nbytes)
     res["copies"] = copies
     return res
 
@@ -876,8 +939,14 @@ STATS_REGIMES = (
     ("pct_histogram", (128, N_BLOCK), "compact"),
     ("pct_histogram", (2048, N_BLOCK), "global"),
     ("pct_histogram", (2048, N_BLOCK), "compact"),
+    # K7: compact timed in turns with "shared" where it holds the shape;
+    # past 16 [Q, G] cells the two whole-copy regimes
+    ("centered_m2", (2, N_BLOCK, 8), "compact"),
+    ("centered_m2", (1, N_BLOCK, 8), "compact"),
     ("centered_m2", (2, N_BLOCK, 8), "shared"),
     ("centered_m2", (2, N_BLOCK, 8), "global"),
+    ("centered_m2", (2, N_BLOCK, 64), "shared"),
+    ("centered_m2", (2, N_BLOCK, 64), "global"),
     ("centered_m2", (2, N_BLOCK, 65536), "global"),
 )
 
@@ -964,7 +1033,9 @@ def drive_stats(p, device=None) -> tuple[dict, dict, dict]:
     if on_card:
         for name, n in launches.items():
             check(n > 0, f"{name} was never launched in phase 7")
-    log(f"phase 7 launches: {launches}")
+    m2_regimes = {str(key): SC.m2_regime(key[0], key[2]) for key in shapes["centered_m2"]}
+    check(set(m2_regimes.values()) == {"compact"}, f"K7 left the compact regime: {m2_regimes}")
+    log(f"phase 7 launches: {launches}, K7 regimes {m2_regimes}")
     return launches, shapes, inputs
 
 # ------------------------------------------------------------------ server
@@ -1393,8 +1464,10 @@ def main() -> int:
                             "uniform")
         log(f"phase 2 minmax_groupby {json.dumps(res)}")
     for kind, key, regime in STATS_REGIMES:
+        old = whole_copy_regime(SC, kind, key)
+        turns = (regime, old, old, regime) if kind == "centered_m2" and regime != old else ()
         res = stats_case(torch, SC, timer, kind, key, stats_inputs(torch, SC, kind, key, gen),
-                         "uniform", regime=regime)
+                         "uniform", regime=regime, turns=turns)
         log(f"phase 2 {kind} {json.dumps(res)}")
     edge_cases(torch, G, gen)
     rule_sweep(torch, G, timer, gen)
@@ -1442,13 +1515,10 @@ def main() -> int:
         if name in STATS_KERNELS:
             for key, calls in sorted(stats_shapes[name].items(), key=str):
                 data = stats_inputs_[name][key]
-                turns, old = (), None
-                if name != "centered_m2":
-                    # the rule's pick against the whole-copy rule's, in turns, on the
-                    # main path's own inputs
-                    new, old = (SC.distinct_regime(*key[:3]) if name == "distinct_fold"
-                                else SC.pct_regime(key[0])), whole_copy_regime(SC, name, key)
-                    turns = (new, old, old, new) if new != old else ()
+                # the rule's pick against the whole-copy rule's, in turns, on the main
+                # path's own inputs
+                new, old = rule_regime(SC, name, key), whole_copy_regime(SC, name, key)
+                turns = (new, old, old, new) if new != old else ()
                 res = stats_case(torch, SC, timer, name, key, data, "main path", turns=turns)
                 res["main_path_calls"] = calls
                 log(f"phase 5 {name} {json.dumps(res)}")

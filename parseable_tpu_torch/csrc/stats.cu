@@ -52,16 +52,21 @@
 //   segment_sum of centred squares; the Chan merge :938 stays elementwise in
 //   the caller). mean is this block's per-group mean, sums / max(count, 1)
 //   from kernel A's outputs, computed on the stream by the caller.
-//   Bound: bytes, N (4 + 1 + 5 Q) read, 3.1 us per value row and 2^20 rows.
-//   Design: kernel A's atomic regimes: a per-CTA [Q, G] f32 accumulator (with
-//   the means beside it) in shared memory where it fits, global atomics past
-//   it, warp-adaptive aggregation of each row's square over the lanes that
-//   share a group when a ballot finds a crowded group (the main path's
-//   status key puts half of the rows in one group).
+//   Bound: bytes, N (4 + 1 + 5 Q) read, 4.7 us at Q = 2 and 2^20 rows.
+//   Design: the "compact" regime (below; the rule's pick for Q <= 2 and
+//   Q * G <= 16, the main path's stddev/var by status) streams contiguous
+//   chunks with vector loads and sums each thread's rows into a private
+//   column of shared memory: no atomics, ballots or matches in the row loop
+//   (the earlier regimes pay for those on every row: the status key puts
+//   half of the rows in one group). Past 16 cells, the earlier regimes: a per-CTA
+//   [Q, G] f32 accumulator (with the means beside it) in shared memory where
+//   it fits ("shared"), global atomics past it ("global"), warp-adaptive
+//   aggregation of each row's square over the lanes that share a group when a
+//   ballot finds a crowded group.
 //
 // Interface: plain C, called through ctypes. Every pointer is a device
 // pointer; `stream` is the caller's cudaStream_t; `mode` is the wrapper's
-// regime choice (0 shared, 1 global, 2 compact: K5 and K6 only). Each
+// regime choice (0 shared, 1 global, 2 compact). Each
 // entry returns cudaGetLastError() after its launch (0 on success), or
 // cudaErrorInvalidValue for a shape the regime does not fit.
 
@@ -70,8 +75,8 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <initializer_list>
 #include <utility>
+#include <vector>
 
 #include "common.cuh"
 
@@ -199,27 +204,29 @@ __device__ __forceinline__ void load4(const int16_t* p, int o[4]) {
   o[2] = (int)(int16_t)(w.y & 0xffffu), o[3] = (int)(int16_t)(w.y >> 16);
 }
 
-// The rows of quad v of (a, b, mask): vector loads for a body quad when VEC,
-// else one scalar load a row; rows past the quad's count get mask 0.
-template <bool VEC, typename A, typename TA, typename B>
-__device__ __forceinline__ void load_quad(const Quads& q, long long v, const A* a, TA oa[4],
-                                          const B* b, int ob[4], const uint8_t* mask, int om[4]) {
+// The rows of quad v of one input: a vector load for a body quad when VEC,
+// else one scalar load a row; rows past the quad's count read 0.
+template <bool VEC, typename A, typename TA>
+__device__ __forceinline__ void load_part(const Quads& q, long long v, const A* a, TA o[4]) {
   long long first;
   int count;
   const bool body = quad_rows(q, v, &first, &count);
   if (VEC && body) {
-    load4(a + first, oa);
-    load4(b + first, ob);
-    load4(mask + first, om);
+    load4(a + first, o);
     return;
   }
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const bool in = k < count;
-    om[k] = in ? (int)mask[first + k] : 0;
-    oa[k] = in ? (TA)a[first + k] : (TA)0;
-    ob[k] = in ? (int)b[first + k] : 0;
-  }
+  for (int k = 0; k < 4; ++k) o[k] = k < count ? (TA)a[first + k] : (TA)0;
+}
+
+// The rows of quad v of (a, b, mask), as load_part: rows past the quad's
+// count get mask 0.
+template <bool VEC, typename A, typename TA, typename B>
+__device__ __forceinline__ void load_quad(const Quads& q, long long v, const A* a, TA oa[4],
+                                          const B* b, int ob[4], const uint8_t* mask, int om[4]) {
+  load_part<VEC>(q, v, a, oa);
+  load_part<VEC>(q, v, b, ob);
+  load_part<VEC>(q, v, mask, om);
 }
 
 // This CTA's rows of (a, b, mask), `quads` quads a thread (R / 4 at most),
@@ -429,7 +436,7 @@ __device__ __forceinline__ int flush_start(int words) {
 // Quads of n rows whose inputs (pointer, element size) all reach a 16-byte
 // phase after one head; *vec is false (no head, scalar loads) where they
 // disagree.
-Quads make_quads(long long n, std::initializer_list<std::pair<const void*, int>> inputs,
+Quads make_quads(long long n, const std::vector<std::pair<const void*, int>>& inputs,
                  bool* vec) {
   int head = -1;
   *vec = true;
@@ -898,6 +905,94 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The compact regime of K7, for Q <= 2 and Q * G <= kM2Cells (the main
+// path's stddev/var by status: Q = 2, G = 8). A CTA of kCompactThreads
+// threads streams a contiguous chunk of the block, a quad of 4 rows a
+// thread: the quad's ids, mask bytes, value rows and valid rows by one
+// 16-byte or 4-byte load each (where every input reaches a 16-byte phase
+// after the same head), all issued before the thread adds anything, so it
+// waits for memory once a quad; the first quad's loads fly while the CTA
+// copies the block's means into shared memory. Each thread adds its rows'
+// squares into a private column of kM2Cells cells in shared memory (thread
+// t's cell c is word c * kCompactThreads + t: no two lanes of a warp share a
+// bank), by a plain read and write, into the cell the row's group and value
+// row select, so a NaN or inf value reaches its own group only. The row loop
+// has no atomic, ballot, match or barrier. At its end two warps sum each
+// cell over the columns, and the CTA adds each nonzero cell into `out` once.
+// What holds it (PERF.md): a 2^20-row block (15.7 MB at Q = 2) is too small
+// for the card to reach its streaming rate in one pass; one torch.sum over
+// as many bytes takes about as long.
+constexpr int kM2Cells = 16;  // [Q, G] cells of a thread's column
+constexpr int kM2Quads = 2;   // quads a K7 thread takes, at most
+constexpr int kM2Smem = kM2Cells * kCompactThreads * 4;  // bytes of a CTA's columns
+
+template <bool VEC, int QT>  // QT: Q (1 or 2); G <= kM2Cells / QT
+__global__ void __launch_bounds__(kCompactThreads)
+    m2_compact_kernel(const float* __restrict__ vals, const uint8_t* __restrict__ valid,
+                      const uint8_t* __restrict__ mask, const int* __restrict__ ids,
+                      const float* __restrict__ mean, int G, Quads q, int quads,
+                      float* __restrict__ out) {
+  extern __shared__ float cols[];  // [kM2Cells][kCompactThreads]
+  constexpr int kWarps = kCompactThreads / 32;
+  static_assert(kWarps == 2 * kM2Cells, "two warps sum each cell");
+  __shared__ float mu[kM2Cells];
+  __shared__ float halves[kWarps];
+  float* col = cols + threadIdx.x;
+  const long long v0 = (long long)blockIdx.x * kCompactThreads * quads + threadIdx.x;
+  for (int r = 0; r < quads; ++r) {
+    const long long v = v0 + (long long)r * kCompactThreads;
+    const bool in = v < q.nq + 2;
+    int g[4], live[4], ok[QT][4];
+    float x[QT][4];
+    if (in) {
+      load_part<VEC>(q, v, ids, g);
+      load_part<VEC>(q, v, mask, live);
+#pragma unroll
+      for (int p = 0; p < QT; ++p) {
+        load_part<VEC>(q, v, vals + p * q.n, x[p]);
+        load_part<VEC>(q, v, valid + p * q.n, ok[p]);
+      }
+    }
+    if (r == 0) {
+      if (threadIdx.x < QT * G) mu[threadIdx.x] = mean[threadIdx.x];
+#pragma unroll
+      for (int c = 0; c < kM2Cells; ++c) col[c * kCompactThreads] = 0.f;
+      __syncthreads();
+    }
+    if (!in) break;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (!live[k] || (unsigned)g[k] >= (unsigned)G) continue;
+#pragma unroll
+      for (int p = 0; p < QT; ++p) {
+        if (!ok[p][k]) continue;
+        const int cell = p * G + g[k];
+        const float d = __fsub_rn(x[p][k], mu[cell]);
+        col[cell * kCompactThreads] += __fmul_rn(d, d);
+      }
+    }
+  }
+  __syncthreads();
+  // cell w / 2, columns [512 (w % 2), + 512) by warp w, a float4 a lane at a time
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float4* half = reinterpret_cast<const float4*>(
+      cols + (warp >> 1) * kCompactThreads + (warp & 1) * (kCompactThreads / 2));
+  float t = 0.f;
+#pragma unroll
+  for (int i = lane; i < kCompactThreads / 8; i += 32) {
+    const float4 f = half[i];
+    t += (f.x + f.y) + (f.z + f.w);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) t += __shfl_xor_sync(kFull, t, o);
+  if (lane == 0) halves[warp] = t;
+  __syncthreads();
+  if (threadIdx.x < QT * G) {
+    const float sum = halves[2 * threadIdx.x] + halves[2 * threadIdx.x + 1];
+    if (sum != 0.f) atomicAdd(out + threadIdx.x, sum);
+  }
+}
+
 }  // namespace
 
 // acc: f32 [G * cap], folded in place. code_bytes: 1, 2 or 4. lut_idx null:
@@ -967,6 +1062,28 @@ extern "C" int centered_m2(const float* vals, const uint8_t* valid, const uint8_
   const cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = cudaMemsetAsync(out, 0, (size_t)Q * G * sizeof(float), s);
   if (err != cudaSuccess || N <= 0) return (int)err;
+  if (mode == kCompact) {
+    if (Q > 2 || Q * G > kM2Cells) return (int)cudaErrorInvalidValue;
+    std::vector<std::pair<const void*, int>> inputs{{ids, 4}, {mask, 1}};
+    for (int p = 0; p < Q; ++p) {
+      inputs.push_back({vals + (long long)p * N, 4});
+      inputs.push_back({valid + (long long)p * N, 1});
+    }
+    bool vec = false, launched = false;
+    const Quads q = make_quads(N, inputs, &vec);
+    auto go = [&](auto kernel) {
+      err = launch_compact((const void*)kernel, kM2Quads, kM2Smem, q,
+                           [&](int grid, int quads, int smem) {
+        if (smem < kM2Smem) return;  // the CTA's columns must fit
+        kernel<<<grid, kCompactThreads, kM2Smem, s>>>(vals, valid, mask, ids, mean, G, q, quads,
+                                                      out);
+        launched = true;
+      });
+      return err == cudaSuccess && !launched ? cudaErrorInvalidValue : err;
+    };
+    if (Q == 1) return (int)(vec ? go(m2_compact_kernel<true, 1>) : go(m2_compact_kernel<false, 1>));
+    return (int)(vec ? go(m2_compact_kernel<true, 2>) : go(m2_compact_kernel<false, 2>));
+  }
   if (mode == kShared) {
     const long long smem = 2LL * Q * G * 4;
     if (smem > kSmemCap) return (int)cudaErrorInvalidValue;

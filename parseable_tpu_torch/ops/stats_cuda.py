@@ -16,9 +16,10 @@ counterpart of one XLA program of the JAX dense fold
 
 Each runs in a regime chosen per shape by its `*_regime` rule or forced
 with `regime=`: "shared" (a per-CTA private accumulator in shared memory),
-"global" (atomics straight into the accumulator) and, for K5 and K6,
-"compact" (each CTA folds a contiguous chunk into a shared copy of only the
-groups its rows reach, or with global atomics where they do not fit).
+"global" (atomics straight into the accumulator) and "compact" (each CTA
+streams a contiguous chunk: K5 and K6 fold it into a shared copy of only
+the groups its rows reach, or with global atomics where they do not fit;
+K7 sums each thread's rows into a private column of [Q, G] cells).
 Beside each wrapper is its plain PyTorch version (`*_plain`, functional: it
 returns a new tensor). A wrapper given CPU tensors computes
 the plain version; given CUDA tensors it launches its kernel or raises
@@ -55,6 +56,7 @@ _NO_LUT_V = 2**31 - 1  # without a LUT every non-negative code is a slot (clampe
 COMPACT_G_MAX = 65536  # groups the compact regime's bitmap covers (csrc kBitmapG)
 COMPACT_PRESENCE_WORDS = 1024  # presence words a compact CTA holds (csrc kPresenceWords)
 DISTINCT_SHARED_MAX = 8192  # entries of K5's whole private copy (the earlier rule)
+M2_COMPACT_CELLS = 16  # [Q, G] cells of a compact K7 thread's column (csrc kM2Cells)
 
 # kernel launches per wrapper (plain integers; reset by whoever measures)
 LAUNCHES = {"distinct_fold": 0, "pct_histogram": 0, "centered_m2": 0}
@@ -270,8 +272,12 @@ def pct_histogram(
 
 
 def m2_regime(q: int, num_groups: int) -> str:
-    """"shared" where the [Q, G] sums and means fit shared memory, else
-    "global" (at Q = 2, G = 8 on an H100: 20 us shared, 282 us global)."""
+    """"compact" where a thread's column holds the [Q, G] cells (Q <= 2 and
+    Q * G <= M2_COMPACT_CELLS: the main path's Q = 2, G = 8; on an H100,
+    PERF.md, 12 us against "shared"'s 20.6), else "shared" where the [Q, G]
+    sums and means fit shared memory, else "global"."""
+    if q <= 2 and q * num_groups <= M2_COMPACT_CELLS:
+        return "compact"
     return "shared" if 2 * q * num_groups * 4 <= SMEM_BUDGET else "global"
 
 
@@ -318,7 +324,10 @@ def centered_m2(
     tensors = (group_ids, vals, valid, mask, mean)
     require(all(t.is_contiguous() for t in tensors), "inputs must be contiguous")
     g = mean.shape[1]
-    mode = _mode(regime or m2_regime(q, g), 2 * q * g * 4)
+    regime = regime or m2_regime(q, g)
+    require(regime != "compact" or m2_regime(q, g) == "compact",
+            f"[{q}, {g}] cells do not fit a compact K7 thread's column")
+    mode = _mode(regime, 2 * q * g * 4)
     out = torch.empty((q, g), dtype=torch.float32, device=vals.device)  # zeroed by the entry
     if q == 0:
         return out

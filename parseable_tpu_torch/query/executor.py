@@ -81,6 +81,9 @@ def evaluate(e: S.Expr, table: pa.Table) -> Any:
         arr = _arr(evaluate(e.expr, table), table)
         values = [i.value if isinstance(i, S.Literal) else evaluate(i, table) for i in e.items]
         mask = pc.is_in(arr, value_set=pa.array(values))
+        # pc.is_in answers false for a NULL input; in SQL it is NULL, and so
+        # is its negation (NOT IN drops the row)
+        mask = pc.if_else(pc.is_valid(arr), mask, pa.scalar(None, pa.bool_()))
         return pc.invert(mask) if e.negated else mask
     if isinstance(e, S.Between):
         arr = _arr(evaluate(e.expr, table), table)

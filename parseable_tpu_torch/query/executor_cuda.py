@@ -340,12 +340,13 @@ class PredicateCompiler:
                     raise UnsupportedOnDevice("string predicate on non-string column")
                 return kernels.lut_mask(dev[col.name], next(luts)) & dev[f"{col.name}__valid"]
         if isinstance(e, S.UnaryOp) and e.op == "not":
-            return ~self._visit(e.operand, enc, dev, luts)
+            value, known = self._visit_known(e.operand, enc, dev, luts)
+            return known & ~value
         if isinstance(e, S.Between):
             m = self._cmp(S.BinaryOp(">=", e.expr, e.low), enc, dev, luts) & self._cmp(
                 S.BinaryOp("<=", e.expr, e.high), enc, dev, luts
             )
-            return ~m if e.negated else m
+            return self._operand_valid(e, enc, dev) & ~m if e.negated else m
         if isinstance(e, S.InList):
             return self._in_list(e, enc, dev, luts)
         if isinstance(e, S.IsNull):
@@ -360,6 +361,38 @@ class PredicateCompiler:
         if isinstance(e, S.Literal) and isinstance(e.value, bool):
             return torch.full_like(dev["__ones"], e.value)
         raise UnsupportedOnDevice(f"predicate not device-mappable: {type(e).__name__}")
+
+    def _visit_known(self, e: S.Expr, enc: EncodedBatch, dev, luts) -> tuple[torch.Tensor, torch.Tensor]:
+        """(true, known) masks of `e` under SQL three-valued logic: a row is
+        true where `e` is TRUE, known where `e` is not NULL. `_visit` gives
+        the true mask, which is all a filter keeps; a NOT needs the known
+        mask too, since NOT NULL is NULL and drops the row."""
+        if isinstance(e, S.BinaryOp) and e.op in ("and", "or"):
+            v1, k1 = self._visit_known(e.left, enc, dev, luts)
+            v2, k2 = self._visit_known(e.right, enc, dev, luts)
+            if e.op == "and":  # FALSE on either side decides
+                return v1 & v2, (k1 & k2) | (k1 & ~v1) | (k2 & ~v2)
+            return v1 | v2, (k1 & k2) | v1 | v2  # TRUE on either side decides
+        if isinstance(e, S.UnaryOp) and e.op == "not":
+            v, k = self._visit_known(e.operand, enc, dev, luts)
+            return k & ~v, k
+        value = self._visit(e, enc, dev, luts)
+        if isinstance(e, (S.IsNull, S.Literal)):
+            return value, dev["__ones"]
+        return value, self._operand_valid(e, enc, dev)
+
+    def _operand_valid(self, e: S.Expr, enc: EncodedBatch, dev) -> torch.Tensor:
+        """Validity of the column a comparison, BETWEEN, IN, LIKE or regex
+        predicate tests (its literals are never NULL)."""
+        if isinstance(e, S.BinaryOp) and e.op in ("=", "!=", "<", "<=", ">", ">="):
+            col = self._cmp_parts(e, enc)[0]
+        elif isinstance(e, S.BinaryOp):
+            col = self._column_of(e.left, enc)
+        elif isinstance(e, (S.Between, S.InList)):
+            col = self._column_of(e.expr, enc)
+        else:
+            col = self._column_of(e.args[0], enc)
+        return dev[f"{col.name}__valid"]
 
     # ---------------------------------------------------------- shared bits
 
@@ -1380,8 +1413,12 @@ class GpuQueryExecutor(QueryExecutor):
                 code = rem % ks.capacity
                 rem //= ks.capacity
                 if ks.kind == "dict":
+                    # code capacity - 1 is the epoch's null slot: a real code
+                    # stays below it (capacity >= len(gdict) + 1 for the
+                    # epoch), but by an epoch's flush the dictionary has
+                    # absorbed the next block and may have grown past it
                     gd = ks.gdict
-                    key_parts.append(gd.values[code] if code < len(gd) else None)
+                    key_parts.append(gd.values[code] if code < ks.capacity - 1 else None)
                 else:
                     abs_ms = ((ks.origin_rel or 0) + code) * ks.bin_ms
                     key_parts.append(

@@ -1,20 +1,21 @@
 #!/usr/bin/env python3
-"""Time design variants of the port's statistics kernels K5 and K6 on one
-NVIDIA card, against each other and the earlier regimes.
+"""Time design variants of the port's statistics kernels K5, K6 and K7 on
+one NVIDIA card, against each other and the earlier regimes.
 
     python3 scripts/torch_stats_variants.py [--variants a,b,...] [--json out.json]
 
 Each variant is `parseable_tpu_torch/csrc/stats.cu` with one design choice
 of the "compact" regime undone or changed (see VARIANTS), built with nvcc
 into `build/variants/<name>/` and called through its C entry points. Every
-variant's result is checked bit for bit against the plain PyTorch version
-on every block, then each is timed device-only (`chip_smoke.DeviceTimer`:
+variant's result is checked against the plain PyTorch version on every
+block (K5 and K6 bit for bit, K7 within rel 2e-4 of its f64 sums), then each is timed device-only (`chip_smoke.DeviceTimer`:
 20 calls between CUDA events, L2-cold over 16 input copies) in turns,
 forward then backward, beside the "global" and "shared" regimes of the
 unchanged source. Blocks: 2^20 rows shaped like the main path's
 (`chip_smoke.py` phase 7: a minute file reaching 3 of 64 groups for
 stats_minute, 8 status groups for stats_status) and uniform ones whose CTAs
-each touch more groups than a compact copy holds.
+each touch more groups than a compact copy holds; K7 on stats_status's
+shape (Q = 2, G = 8, half of the rows in one group) and uniform ones.
 """
 
 from __future__ import annotations
@@ -95,7 +96,6 @@ AGG_ADD = """    const unsigned lane = 1u << (threadIdx.x & 31);
       atomicAdd(c.copy + (key[k] >> 1), (unsigned)__popc(peers) << ((key[k] & 1) << 4));
     }
 """
-
 # name -> (what it changes, text substitutions, function bodies replaced)
 VARIANTS = {
     "compact": ("the source as it is", [], []),
@@ -126,6 +126,12 @@ VARIANTS = {
     "k6-one-cta": ("K6: 8 rows a thread, one CTA an SM",
                    [("constexpr int kPctRows = 4;", "constexpr int kPctRows = 8;"), K6_BOUNDS],
                    []),
+    "k7-full-occupancy": ("K7: 32 registers a thread, two CTAs an SM",
+                          [("__global__ void __launch_bounds__(kCompactThreads)\n    m2_compact_kernel",
+                            "__global__ void __launch_bounds__(kCompactThreads, 2)\n"
+                            "    m2_compact_kernel")], []),
+    "k7-one-quad": ("K7: one quad a thread, as many CTAs as the block needs",
+                    [("constexpr int kM2Quads = 2;", "constexpr int kM2Quads = 1;")], []),
 }
 
 
@@ -159,7 +165,8 @@ def build(name: str) -> tuple[str, Path]:
 
 
 def blocks(torch, SC, seed: int) -> dict:
-    """2^20-row blocks, main-path-shaped and uniform, as (kind, G, cap, tensors)."""
+    """2^20-row blocks, main-path-shaped and uniform, as (kind, G, cap, tensors);
+    K7's cap is its Q."""
     from parseable_tpu_torch.ops.hll_sketch import luts_for_dictionary
 
     rng = np.random.default_rng(seed)
@@ -200,6 +207,16 @@ def blocks(torch, SC, seed: int) -> dict:
         name = f"uniform {'HLL' if cap == 4096 else 'presence'} {g}x{cap}"
         out[name] = ("dist", g, cap, (t(rng.integers(0, g, n).astype(np.int32)), codes, mask,
                                       t(lut.astype(np.int32))))
+    # K7 (ids, vals [Q, N], valid [Q, N], mask, means [Q, G]): stats_status's
+    # 8 status groups, 200 on half of the rows, and uniform blocks
+    def m2(q, g, ids):
+        return ("m2", g, q, (t(ids), t((rng.random((q, n)) * 500).astype(np.float32)),
+                             t(rng.random((q, n)) < 0.9), t(rng.random(n) < 0.9),
+                             t((rng.random((q, g)) * 500).astype(np.float32))))
+
+    out["main K7 Q=2 G=8"] = m2(2, 8, code)
+    for q, g in ((1, 8), (2, 8), (1, 16), (2, 64), (3, 5000)):
+        out[f"uniform K7 Q={q} G={g}"] = m2(q, g, rng.integers(0, g, n).astype(np.int32))
     return out
 
 
@@ -250,6 +267,12 @@ def main() -> int:
                                 acc.data_ptr(), mode, stream())
         assert err == 0, err
 
+    def k7(lib, out, ids, vals, valid, mask, mean, mode):
+        q, g = mean.shape
+        err = lib.centered_m2(vals.data_ptr(), valid.data_ptr(), mask.data_ptr(), ids.data_ptr(),
+                              mean.data_ptr(), q, g, ids.numel(), out.data_ptr(), mode, stream())
+        assert err == 0, err
+
     timer = CS.DeviceTimer(torch)
     results = {}
     print(CS.nvidia_smi(), flush=True)
@@ -258,7 +281,27 @@ def main() -> int:
             continue
         sets = [tuple(x.cuda() for x in host) for _ in range(COPIES)]
         runs = [(v, "compact") for v in names] + [("compact", "global")]
-        if kind == "pct":
+        exact = kind != "m2"
+        if kind == "m2":
+            # the variants where the compact regime holds the shape, else
+            # the earlier regimes against each other
+            q = cap
+            fits = SC.m2_regime(q, g) == "compact"
+            runs = [(v, "compact") for v in names] if fits else [("compact", "global")]
+            if 2 * q * g * 4 <= SC.SMEM_BUDGET:
+                runs.append(("compact", "shared"))
+            want = SC.centered_m2_plain(*sets[0])
+            out = torch.empty_like(want)
+            reset = None
+
+            def call(v, mode, k, out=out):
+                k7(libs[v], out, *sets[k], MODES[mode])
+
+            def fresh_result(v, mode):
+                a = torch.empty_like(want)
+                k7(libs[v], a, *sets[0], MODES[mode])
+                return a
+        elif kind == "pct":
             if g * SC.DEVICE_NB * 4 <= SC.SMEM_BUDGET:
                 runs.append(("compact", "shared"))
             want = SC.pct_histogram_plain(torch.zeros(g * SC.DEVICE_NB, device="cuda"), *sets[0])
@@ -297,7 +340,9 @@ def main() -> int:
                 k5(libs[v], a, cap, *sets[0], MODES[mode])
                 return a
         for v, mode in runs:
-            if not torch.equal(fresh_result(v, mode), want):
+            got = fresh_result(v, mode)
+            if not (torch.equal(got, want) if exact
+                    else torch.allclose(got, want, rtol=CS.REL_TOL, atol=CS.ABS_TOL)):
                 raise SystemExit(f"{bname}: {v} ({mode}) differs from the plain version")
         times = {}
         for v, mode in runs + runs[::-1]:

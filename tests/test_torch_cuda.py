@@ -462,7 +462,9 @@ def test_cuda_compact_partial_overflow(cuda, g):
 
 @pytest.mark.parametrize("skew", SKEWS)
 @pytest.mark.parametrize("q,g,regime", [(1, 8, "shared"), (2, 64, "shared"), (3, 5000, "shared"),
-                                        (2, 8, "global"), (2, 65536, "global")])
+                                        (2, 8, "global"), (2, 65536, "global"),
+                                        (1, 8, "compact"), (2, 8, "compact"), (1, 16, "compact"),
+                                        (2, 5, "compact")])
 def test_cuda_centered_m2_matches_f64(cuda, q, g, regime, skew):
     """K7 within rel 2e-4 of its f64 plain version; a NaN or +-inf value
     poisons its own group only."""
@@ -490,7 +492,57 @@ def test_cuda_centered_m2_matches_f64(cuda, q, g, regime, skew):
     torch.testing.assert_close(got, ref, rtol=2e-4, atol=1e-6, equal_nan=True)
 
 
-def test_cuda_stats_refuse_a_regime_that_does_not_fit(cuda):
+@pytest.mark.parametrize("q", [1, 2])
+@pytest.mark.parametrize("offset", ["all", "ids", "vals", "none"])
+def test_cuda_centered_m2_compact_unaligned_inputs(cuda, q, offset):
+    """K7's compact regime on inputs one element past a 16-byte boundary:
+    all of them (a scalar head of 3 rows, vector loads, a scalar tail of 1)
+    or one (no common phase: scalar loads)."""
+    from parseable_tpu_torch.ops import stats_cuda as SC
+
+    rng = np.random.default_rng(31 + q)
+    n, g = 70_000, 8
+    ids = torch.from_numpy(_stat_ids(rng, n + 1, g, "five-groups-half-in-one")).to(cuda)
+    mask = torch.from_numpy(rng.random(n + 1) < 0.8).to(cuda)
+    flat_vals = torch.from_numpy((rng.random(q * n + 1) * 50_000).astype(np.float32)).to(cuda)
+    flat_valid = torch.from_numpy(rng.random(q * n + 1) < 0.9).to(cuda)
+
+    def part(t, name, rows=None):
+        t = t[1:] if offset in ("all", name) else t[:-1]
+        return t if rows is None else t.view(rows, n)
+
+    args = [part(ids, "ids"), part(flat_vals, "vals", q), part(flat_valid, "vals", q),
+            part(mask, "mask")]
+    assert (args[0].data_ptr() % 16 != 0) == (offset in ("all", "ids"))
+    mean = torch.from_numpy((rng.random((q, g)) * 50_000).astype(np.float32)).to(cuda)
+    got = SC.centered_m2(*args, mean, regime="compact")
+    torch.testing.assert_close(got, SC.centered_m2_plain(*args, mean), rtol=2e-4, atol=1e-6)
+
+
+def test_cuda_centered_m2_compact_any_block_size_on_two_streams(cuda):
+    """K7's compact regime on blocks of one CTA of scalar rows (5 rows) to
+    256 CTAs, launched in turn on the current stream and on another one."""
+    from parseable_tpu_torch.ops import stats_cuda as SC
+
+    rng = np.random.default_rng(37)
+    side = torch.cuda.Stream()
+    for n, stream in ((1 << 20, None), (5, None), (70_001, side), (1 << 18, None), (4097, side)):
+        q, g = 2, 8
+        ids = torch.from_numpy(_stat_ids(rng, n, g, "uniform")).to(cuda)
+        vals = torch.from_numpy((rng.random((q, n)) * 500).astype(np.float32)).to(cuda)
+        valid = torch.from_numpy(rng.random((q, n)) < 0.9).to(cuda)
+        mask = torch.from_numpy(rng.random(n) < 0.8).to(cuda)
+        mean = torch.from_numpy((rng.random((q, g)) * 500).astype(np.float32)).to(cuda)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            got = SC.centered_m2(ids, vals, valid, mask, mean, regime="compact")
+        torch.cuda.synchronize()
+        want = SC.centered_m2_plain(ids, vals, valid, mask, mean)
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("regime,q,g", [("shared", 2, 65536), ("compact", 2, 64), ("compact", 3, 4)])
+def test_cuda_stats_refuse_a_regime_that_does_not_fit(cuda, regime, q, g):
     from parseable_tpu_torch.ops import stats_cuda as SC
 
     n = 1024
@@ -503,8 +555,8 @@ def test_cuda_stats_refuse_a_regime_that_does_not_fit(cuda):
         SC.distinct_fold(torch.zeros(64 * 4096, device=cuda), ids,
                          torch.zeros(n, dtype=torch.int8, device=cuda), mask, 4096, regime="shared")
     with pytest.raises(G.KernelError):
-        SC.centered_m2(ids, torch.ones((2, n), device=cuda), mask[None].expand(2, n).contiguous(),
-                       mask, torch.zeros((2, 65536), device=cuda), regime="shared")
+        SC.centered_m2(ids, torch.ones((q, n), device=cuda), mask[None].expand(q, n).contiguous(),
+                       mask, torch.zeros((q, g), device=cuda), regime=regime)
 
 
 @pytest.mark.parametrize(

@@ -20,8 +20,11 @@ Row identity sorts on group keys only (`g*`), never on floats.
 import random
 from datetime import datetime, timedelta
 
+import math
+
 import numpy as np
 import pyarrow as pa
+import pyarrow.compute as pc
 import pytest
 
 from parseable_tpu.config import Options as JaxOptions
@@ -272,3 +275,132 @@ def test_differential_fuzz():
         ref = jax_cpu(sql, tables)
         assert_rows(ref, got, f"[trial {trial}] {sql}", exact_minmax=False)
         assert_rows(ref, port_cpu(sql, tables), f"[trial {trial}] {sql}", exact_minmax=False)
+
+
+# ------------------------------------------------ NULL keys, negations, NaN
+
+
+def with_null_hosts(table: pa.Table, seed: int) -> pa.Table:
+    """`table` with exactly 5% of its host values set to NULL."""
+    n = table.num_rows
+    null = np.zeros(n, dtype=bool)
+    null[np.random.default_rng(seed).choice(n, n // 20, replace=False)] = True
+    host = pc.if_else(pa.array(null), pa.scalar(None, pa.string()), table["host"].combine_chunks())
+    return table.set_column(table.schema.get_field_index("host"), "host", host)
+
+
+@pytest.fixture(scope="module")
+def null_host_tables() -> list[pa.Table]:
+    """The three tables of `tables`, 450 NULL hosts and 914 NULL lat values."""
+    return [with_null_hosts(make_table(40 + i, 3000, card), 47 + i)
+            for i, card in enumerate(HOST_CARDS)]
+
+
+# (blocks, query): the second block's 5 hosts grow the host dictionary past
+# code 3, the first capacity epoch's null slot (capacity 4: 2 hosts + null)
+EPOCH_CASES = {
+    "count": (2, "SELECT host AS g0, count(*) AS c0 FROM t GROUP BY g0"),
+    "stddev": (3, "SELECT host AS g0, stddev(lat) AS a0 FROM t WHERE lat > 99.5 GROUP BY g0"),
+}
+
+
+@pytest.mark.parametrize("name", list(EPOCH_CASES))
+def test_null_group_key_survives_a_capacity_epoch(name, null_host_tables):
+    """A block whose dictionary outgrows the key's capacity ends an epoch:
+    its accumulators are decoded with the dictionary that already holds the
+    new block's values, and the old epoch's null slot must still decode as
+    NULL. Held against both CPU engines: the JAX "tpu" engine relabels the
+    null slot the same way on blocks tagged by source id."""
+    blocks, sql = EPOCH_CASES[name]
+    tables = null_host_tables[:blocks]
+    got, routes = port_gpu(sql, tables)
+    assert routes["cpu_fallback"] == 0 and routes["device_cold"] == blocks, routes
+    assert any(r["g0"] is None for r in got)
+    assert_rows(jax_cpu(sql, tables), got, sql, exact_minmax=False)
+    assert_rows(port_cpu(sql, tables), got, sql, exact_minmax=False)
+    if name == "count":
+        counts = {r["g0"]: r["c0"] for r in got}
+        assert (counts[None], counts["h4"]) == (300, 584)
+    else:
+        assert len(got) == 20
+
+
+def _in_h0_h1(col):
+    return pc.or_kleene(pc.equal(col, "h0"), pc.equal(col, "h1"))
+
+
+# WHERE clause -> its value per row under SQL's three-valued logic (NULL
+# where an operand is NULL), built from pyarrow's Kleene kernels
+NEGATIONS = {
+    "not-eq": ("NOT (host = 'h0')", lambda t: pc.invert(pc.equal(t["host"], "h0"))),
+    "not-in": ("host NOT IN ('h0', 'h1')", lambda t: pc.invert(_in_h0_h1(t["host"]))),
+    "not-of-in": ("NOT (host IN ('h0', 'h1'))", lambda t: pc.invert(_in_h0_h1(t["host"]))),
+    "not-between": (
+        "lat NOT BETWEEN 10 AND 20",
+        lambda t: pc.invert(pc.and_kleene(pc.greater_equal(t["lat"], 10.0),
+                                          pc.less_equal(t["lat"], 20.0))),
+    ),
+    "not-gt": ("NOT (lat > 50)", lambda t: pc.invert(pc.greater(t["lat"], 50.0))),
+}
+
+
+def kleene_counts(name: str, tables, key: str) -> dict:
+    """Rows per `key` value that the WHERE keeps: a NULL selection drops."""
+    counts: dict = {}
+    for t in tables:
+        kept = pc.filter(t, NEGATIONS[name][1](t), null_selection_behavior="drop")
+        for v in kept[key].to_pylist():
+            counts[v] = counts.get(v, 0) + 1
+    return counts
+
+
+def negation_sql(name: str, key: str) -> str:
+    return f"SELECT {key} AS g0, count(*) AS c0 FROM t WHERE {NEGATIONS[name][0]} GROUP BY g0"
+
+
+@pytest.mark.parametrize("engine", ["gpu", "cpu"])
+@pytest.mark.parametrize("name", list(NEGATIONS))
+def test_negation_follows_three_valued_logic(name, engine, null_host_tables):
+    """NOT over a NULL operand is NULL and drops the row, in both port
+    engines (the JAX package's engines disagree with each other here)."""
+    sql = negation_sql(name, "path")
+    if engine == "gpu":
+        got, routes = port_gpu(sql, null_host_tables)
+        assert routes["cpu_fallback"] == 0, routes
+    else:
+        got = port_cpu(sql, null_host_tables)
+    assert {r["g0"]: r["c0"] for r in got} == kleene_counts(name, null_host_tables, "path")
+
+
+@pytest.mark.parametrize("name", list(NEGATIONS))
+def test_negation_does_not_depend_on_the_route(monkeypatch, name, null_host_tables):
+    """A scan whose first block folds on the device and the rest on the host
+    (the group space outgrows DENSE_G_MAX) answers as an all-device scan."""
+    sql = negation_sql(name, "host")
+    on_device, routes = port_gpu(sql, null_host_tables)
+    assert routes["cpu_fallback"] == 0, routes
+    monkeypatch.setattr(X, "DENSE_G_MAX", 4)  # the first block's 2 hosts (+ null) fit
+    mixed, routes = port_gpu(sql, null_host_tables)
+    assert routes["device_cold"] == 1 and routes["cpu_fallback"] == 2, routes
+    want = kleene_counts(name, null_host_tables, "host")
+    assert {r["g0"]: r["c0"] for r in mixed} == {r["g0"]: r["c0"] for r in on_device} == want
+
+
+def test_nan_value_poisons_only_its_own_group(tables):
+    """One NaN lat makes sum(lat) NaN in its own group only (the JAX "tpu"
+    engine spreads it to every group of the block)."""
+    lat = tables[1]["lat"].to_pylist()
+    status = tables[1]["status"].to_pylist()
+    row = next(i for i, (v, s) in enumerate(zip(lat, status)) if v is not None and s == 301.0)
+    lat[row] = math.nan
+    poisoned = tables[1].set_column(tables[1].schema.get_field_index("lat"), "lat", pa.array(lat))
+    blocks = [tables[0], poisoned, tables[2]]
+    sql = "SELECT status AS g0, sum(lat) AS a0, count(lat) AS c0 FROM t WHERE status <> 200 GROUP BY g0"
+    got, routes = port_gpu(sql, blocks)
+    assert routes["cpu_fallback"] == 0, routes
+    nan_groups = {r["g0"] for r in got if math.isnan(r["a0"])}
+    assert nan_groups == {301.0}
+    for ref in (jax_cpu(sql, blocks), port_cpu(sql, blocks)):
+        assert {r["g0"] for r in ref if math.isnan(r["a0"])} == nan_groups
+        finite = [r for r in ref if r["g0"] not in nan_groups]
+        assert_rows(finite, [r for r in got if r["g0"] not in nan_groups], sql, exact_minmax=False)

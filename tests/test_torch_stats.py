@@ -429,7 +429,9 @@ def test_stats_wrappers_compute_plain_on_cpu_and_check_inputs():
         ("distinct", (65536, 16, True), "compact"), ("distinct", (65537, 16, True), "global"),
         ("pct", (24,), "compact"), ("pct", (25,), "compact"), ("pct", (8,), "compact"),
         ("pct", (64,), "compact"), ("pct", (8188,), "compact"), ("pct", (65537,), "global"),
-        ("m2", (2, 8), "shared"), ("m2", (2, 65536), "global"),
+        ("m2", (2, 64), "shared"), ("m2", (2, 65536), "global"),
+        ("m2", (2, 8), "compact"), ("m2", (1, 16), "compact"), ("m2", (1, 17), "shared"),
+        ("m2", (3, 4), "shared"),
     ],
 )
 def test_statistics_regime_rules(rule, args, regime):
