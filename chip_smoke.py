@@ -8,11 +8,19 @@ holds every regime of each against its plain PyTorch version on the card
 (phase 2; with the regimes side by side at the shapes where the rules
 switch), writes an access-log lake of 2^23 rows (8 one-minute Parquet
 files of 2^20 rows, the shape of `bench.py`'s "default" profile) through the
-port's own sync path (phase 3), and answers four GROUP BY queries on the
-port's "gpu" engine and on its "cpu" engine, cold and then warm (phase 4).
-Phase 7 answers two dashboard queries with stddev, var, approximate
-percentiles, count(distinct) and approx_distinct on the same lake, through
-the statistics kernels K5-K7 (`parseable_tpu_torch/csrc/stats.cu`). Phase 5
+port's own sync path, which also seeds the encoded-block cache (phase 3),
+and answers four GROUP BY queries on the port's "cpu" engine and on its
+"gpu" engine in four cache states: cold (device hot set and encoded-block
+cache empty), page-cache warm (no encoded-block cache: Parquet read and
+encode again), disk-warm (the encoded-block cache serves) and device-warm
+(the hot set serves), with a profiled page-cache-warm and device-warm run
+each whose device busy time is broken down into copies, the hand kernels
+and other kernels (phase 4). Phase 7 does the same with two dashboard
+queries with stddev, var, approximate percentiles, count(distinct) and
+approx_distinct, through the statistics kernels K5-K7
+(`parseable_tpu_torch/csrc/stats.cu`). Phase 8 runs the groupby query
+twice under a hot-set budget below its blocks: evictions, and the
+prefetcher shipping blocks on its own CUDA stream. Phase 5
 checks and times each kernel on the inputs the main path gave it (one block
 per shape, recorded in phases 4 and 7) and kernels A and B also on uniform
 inputs of the same shape; K5-K7 there in the regime their rule picks and
@@ -287,6 +295,7 @@ def kernel_a_case(torch, G, timer, ids, rows, g: int, inputs: str,
     }
     res.update(timed(timer, fns, copies))
     res["profiler_ms"], res["profiler_kernels"] = profiled_ms(torch, fns["ms"], ("additive",))
+    res["sum_ms"] = stream_sum_ms(torch, timer, nbytes)
     if regime == "tensor":
         ops = 2 * (-(-g // 16) * 16) * G.TC_COLS * n
         res["bound_ms"], res["bound_by"] = bound_ms(nbytes, ops, TC_OPS_PER_S)
@@ -339,6 +348,7 @@ def kernel_b_case(torch, G, timer, ids, vals, valid, mask, g: int, n_min: int,
            "decode": G.minmax_decode(k, g), "max_abs_err": err}
     res.update(timed(timer, fns, copies))
     res["profiler_ms"], res["profiler_kernels"] = profiled_ms(torch, fns["ms"], ("minmax",))
+    res["sum_ms"] = stream_sum_ms(torch, timer, nbytes)
     res["bound_ms"], res["bound_by"] = bound_ms(nbytes, k * n)
     res["copies"] = copies
     return res
@@ -503,13 +513,18 @@ def build_lake(work: Path, seed: int, minutes: int, rows: int):
     rng = np.random.default_rng(seed)
     for minute in range(minutes):
         stream.write_parquet(make_minute(pa, np, rng, minute, rows), BASE + timedelta(minutes=minute))
-    p.sync_all_streams()
+    t1 = time.perf_counter()
+    p.sync_all_streams()  # uploads, commits, and seeds the encoded-block cache
     fmt = p.metastore.get_stream_json(STREAM)
     check(fmt.stats.events == minutes * rows, f"lake holds {fmt.stats.events} rows")
     check(not stream.parquet_files(), "staged parquet left after sync")
+    seeded = sorted((work / "staging" / "encoded_cache").glob("*.enc"))
+    check(len(seeded) == minutes, f"the upload seed wrote {len(seeded)} of {minutes} entries")
     log(
         f"phase 3 lake: {fmt.stats.events} rows in {minutes} files, "
-        f"{fmt.stats.storage} parquet bytes, {time.perf_counter() - t0:.2f} s"
+        f"{fmt.stats.storage} parquet bytes, {time.perf_counter() - t0:.2f} s (sync and the "
+        f"encoded-block cache seed {time.perf_counter() - t1:.2f} s, "
+        f"{sum(f.stat().st_size for f in seeded)} bytes in {len(seeded)} entries)"
     )
     return p
 
@@ -522,10 +537,41 @@ KERNEL_SYMBOLS = {
 }
 
 
-def profiled_query(torch, sess, qname: str, text: str, phase: str = "phase 4"):
-    """One more warm GPU run under torch.profiler: the device's busy time
-    (CUDA kernels and copies) against the query's wall time, and the hand
-    kernels' share of it."""
+def device_breakdown(prof) -> dict:
+    """torch.profiler's device busy time of one query, in us, split into
+    host -> device copies, device -> host copies, each hand kernel, and
+    every other device op (kernels and memsets), the three largest named."""
+    out = {"busy": 0.0, "h2d": 0.0, "d2h": 0.0, "hand": 0.0, "other": 0.0}
+    hand = dict.fromkeys(KERNEL_SYMBOLS, 0.0)
+    calls = dict.fromkeys(KERNEL_SYMBOLS, 0)
+    others: dict[str, float] = {}
+    for ev in prof.key_averages():
+        if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            continue
+        us = getattr(ev, "self_device_time_total", 0.0)
+        out["busy"] += us
+        kernel = next((k for k, sym in KERNEL_SYMBOLS.items() if sym in ev.key), None)
+        if "HtoD" in ev.key:
+            out["h2d"] += us
+        elif "DtoH" in ev.key:
+            out["d2h"] += us
+        elif kernel is not None:
+            out["hand"] += us
+            hand[kernel] += us
+            calls[kernel] += ev.count
+        else:
+            out["other"] += us
+            others[ev.key] = others.get(ev.key, 0.0) + us
+    out["hand_kernels"] = {k: [round(hand[k], 3), calls[k]] for k in KERNEL_SYMBOLS if calls[k]}
+    out["top_other"] = [[k[:90], round(v, 3)] for k, v in
+                        sorted(others.items(), key=lambda kv: -kv[1])[:3]]
+    return out
+
+
+def profiled_query(torch, sess, qname: str, text: str, phase: str, state: str):
+    """One more GPU run under torch.profiler: the device's busy time
+    (kernels and copies) against the query's wall time, and its breakdown
+    (`device_breakdown`)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -533,28 +579,124 @@ def profiled_query(torch, sess, qname: str, text: str, phase: str = "phase 4"):
         res = sess.query(text)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    busy_us = dict.fromkeys(("all", *KERNEL_SYMBOLS), 0.0)
-    calls = dict.fromkeys(KERNEL_SYMBOLS, 0)
-    for ev in prof.key_averages():
-        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            us = getattr(ev, "self_device_time_total", 0.0)
-            busy_us["all"] += us
-            for k, sym in KERNEL_SYMBOLS.items():
-                if sym in ev.key:
-                    busy_us[k] += us
-                    calls[k] += ev.count
-    if busy_us["all"] == 0.0:
-        log(f"{phase} {qname} profile: the profiler saw no device time (not measured)")
+    b = device_breakdown(prof)
+    if b["busy"] == 0.0:
+        log(f"{phase} {qname} {state} profile: the profiler saw no device time (not measured)")
     else:
-        kernels = ", ".join(
-            f"{k} {busy_us[k] / 1e3:.3f} ms in {calls[k]} kernels" for k in KERNEL_SYMBOLS if calls[k]
-        )
         log(
-            f"{phase} {qname} profile: wall {wall_ms:.3f} ms, device busy "
-            f"{busy_us['all'] / 1e3:.3f} ms (idle share {1 - busy_us['all'] / 1e3 / wall_ms:.4f}), "
-            f"{kernels}"
+            f"{phase} {qname} {state} profile: wall {wall_ms:.3f} ms, device busy "
+            f"{b['busy'] / 1e3:.3f} ms (idle share {1 - b['busy'] / 1e3 / wall_ms:.4f}); "
+            f"breakdown us: h2d {b['h2d']:.3f}, d2h {b['d2h']:.3f}, hand kernels "
+            f"{b['hand']:.3f} {json.dumps(b['hand_kernels'])}, other {b['other']:.3f}, "
+            f"largest other {json.dumps(b['top_other'])}"
         )
     return res
+
+
+# cache states of a lake query (PERF.md §2): cold = hot set and encoded-block
+# cache empty; page-cache warm = no encoded-block cache, hot set cleared (a
+# warm page cache only: Parquet read and encode again); disk-warm = hot set
+# cleared, the encoded-block cache serves; device-warm = the hot set serves
+STATES = ("cold", "page-cache warm", "disk-warm", "device-warm")
+
+
+def state_runs(torch, p, qname: str, text: str, phase: str, device, rel=None) -> list:
+    """One lake query on the "gpu" engine in the four cache states, one more
+    profiled page-cache-warm and device-warm run each (on the card), then
+    once on the "cpu" engine. Every GPU run equals the CPU run, stays on the
+    device, and resolves its blocks as its state says. Returns the GPU
+    results."""
+    import os
+
+    from parseable_tpu_torch.ops.enccache import get_enccache
+    from parseable_tpu_torch.ops.hotset import get_hotset
+    from parseable_tpu_torch.query.session import QuerySession
+
+    on_card = device is None or torch.device(device).type == "cuda"
+    cache = get_enccache(p.options)
+
+    def gpu(state: str, profiled: bool = False):
+        hs = get_hotset()
+        if state == "cold":
+            hs.clear()
+            cache.wait_idle()
+            for f in cache.root.glob("*.enc"):
+                f.unlink()
+        elif state == "page-cache warm":
+            hs.clear()
+            os.environ["P_TPU_ENC_CACHE"] = "0"
+        elif state == "disk-warm":
+            cache.wait_idle()
+            hs.clear()
+        try:
+            sess = QuerySession(p, engine="gpu", device=device)
+            if profiled:
+                return profiled_query(torch, sess, qname, text, phase, state)
+            t = time.perf_counter()
+            res = sess.query(text)
+            if on_card:
+                torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+        finally:
+            os.environ.pop("P_TPU_ENC_CACHE", None)
+        st, r = res.stats, res.stats["device_routes"]
+        stages = {k: v for k, v in st["stages"].items() if k != "hotset"}
+        log(
+            f"{phase} {qname} gpu {state}: {res.table.num_rows} rows out, {st['rows_scanned']} "
+            f"scanned in {dt:.3f} s = {st['rows_scanned'] / dt:.6g} rows/s, wall {dt * 1e3:.3f} ms, "
+            f"{st['bytes_scanned']} Parquet bytes read, h2d block bytes "
+            f"{r['h2d_bytes'] - r['h2d_aux_bytes']} aux bytes {r['h2d_aux_bytes']}, stages "
+            f"{stages} routes {r} hotset {st['stages']['hotset']}"
+        )
+        return res
+
+    out = []
+    for state in STATES:
+        res = gpu(state)
+        if on_card and state in ("page-cache warm", "device-warm"):
+            out.append(gpu(state, profiled=True))
+        out.append(res)
+        st, r = res.stats, res.stats["device_routes"]
+        blocks = st["files_total"] - st["files_pruned"]
+        check(blocks > 0, f"{qname}: no lake block scanned")
+        if state == "device-warm":
+            check((r["device_warm"], r["device_cold"]) == (blocks, 0),
+                  f"{qname} {state}: {blocks} blocks but routes {r}")
+            check(r["h2d_bytes"] == r["h2d_aux_bytes"], f"{qname} {state}: block bytes shipped {r}")
+        elif state == "disk-warm":
+            check(r["device_warm"] + r["device_cold"] == blocks
+                  and r["device_warm"] == r.get("prefetch_hits", 0),
+                  f"{qname} {state}: {blocks} blocks but routes {r}")
+        else:
+            check((r["device_warm"], r["device_cold"]) == (0, blocks),
+                  f"{qname} {state}: {blocks} blocks but routes {r}")
+        check((st["bytes_scanned"] > 0) == (state in ("cold", "page-cache warm")),
+              f"{qname} {state}: {st['bytes_scanned']} Parquet bytes read")
+        check(r.get("prefetch_errors", 0) == 0, f"{qname} {state}: prefetch errors {r}")
+    t = time.perf_counter()
+    cpu = QuerySession(p, engine="cpu").query(text)
+    dt = time.perf_counter() - t
+    log(f"{phase} {qname} cpu: {cpu.table.num_rows} rows out, {cpu.stats['rows_scanned']} "
+        f"scanned in {dt:.3f} s = {cpu.stats['rows_scanned'] / dt:.6g} rows/s, "
+        f"stages {cpu.stats['stages']}")
+    for res in out:
+        routes = res.stats["device_routes"]
+        check(routes["cpu_fallback"] == 0, f"{qname}: cpu_fallback {routes}")
+        check(res.stats["scan_errors"] == 0, f"{qname}: scan errors")
+        same_result(qname, res.table, cpu.table, rel)
+    check(out[0].table.num_rows > 0, f"{qname}: empty result")
+    return out
+
+
+def log_residency(torch, phase: str, on_card: bool) -> None:
+    """The hot set after a phase, and the card's allocated memory."""
+    from parseable_tpu_torch.ops.hotset import get_hotset
+    from parseable_tpu_torch.ops.link import get_link
+
+    snap = get_hotset().stats_snapshot()
+    mem = torch.cuda.memory_allocated() if on_card else "not measured"
+    log(f"{phase} hot set {json.dumps(snap)}, torch.cuda.memory_allocated {mem}, "
+        f"link profile {json.dumps(get_link().snapshot())}")
 
 
 def drive_main_path(p, device=None) -> tuple[dict, dict, dict]:
@@ -590,45 +732,16 @@ def drive_main_path(p, device=None) -> tuple[dict, dict, dict]:
     K.additive_groupby, K.minmax_groupby = rec_a, rec_b
     for name in G.LAUNCHES:
         G.LAUNCHES[name] = 0
-    per_query: dict[str, dict] = {}
     try:
         for qname, sql in QUERIES.items():
-            text = sql.format(stream=STREAM)
             before = dict(G.LAUNCHES)
-            out: dict[str, list] = {}
-            for engine in ("gpu", "cpu"):
-                for run in ("cold", "warm"):
-                    sess = QuerySession(p, engine=engine, device=device if engine == "gpu" else None)
-                    t = time.perf_counter()
-                    res = sess.query(text)
-                    if engine == "gpu" and on_card:
-                        torch.cuda.synchronize()
-                    dt = time.perf_counter() - t
-                    out.setdefault(engine, []).append(res)
-                    rows_s = res.stats["rows_scanned"] / dt
-                    log(
-                        f"phase 4 {qname} {engine} {run}: {res.table.num_rows} rows out, "
-                        f"{res.stats['rows_scanned']} scanned in {dt:.3f} s = {rows_s:.6g} rows/s"
-                        f" stages {res.stats['stages']}"
-                        + (f" routes {res.stats['device_routes']}" if engine == "gpu" else "")
-                    )
-                    per_query.setdefault(qname, {})[f"{engine}_{run}_rows_per_s"] = rows_s
-            if on_card:
-                out["gpu"].append(profiled_query(torch, QuerySession(p, device=device), qname, text))
-            for res in out["gpu"]:
-                routes = res.stats["device_routes"]
-                check(routes["cpu_fallback"] == 0, f"{qname}: cpu_fallback {routes}")
-                check(routes["device_cold"] > 0, f"{qname}: no block ran on the device {routes}")
-                check(res.stats["scan_errors"] == 0, f"{qname}: scan errors")
-            for res in out["gpu"] + out["cpu"][1:]:
-                same_result(qname, res.table, out["cpu"][0].table)
-            check(out["gpu"][0].table.num_rows > 0, f"{qname}: empty result")
+            state_runs(torch, p, qname, sql.format(stream=STREAM), "phase 4", device)
             delta = {k: G.LAUNCHES[k] - before[k] for k in G.LAUNCHES}
             if on_card:
                 check(delta["additive_groupby"] > 0, f"{qname}: kernel A never launched")
                 if qname == "minmax":
                     check(delta["minmax_groupby"] > 0, f"{qname}: kernel B never launched")
-            log(f"phase 4 {qname}: gpu == cpu, launches {delta}")
+            log(f"phase 4 {qname}: gpu == cpu in every cache state, launches {delta}")
     finally:
         K.additive_groupby, K.minmax_groupby = real_a, real_b
     launches = dict(G.LAUNCHES)
@@ -636,9 +749,61 @@ def drive_main_path(p, device=None) -> tuple[dict, dict, dict]:
         for name, n in launches.items():
             check(n > 0, f"{name} was never launched on the main path")
     log(f"phase 4 launches on the main path: {launches}")
-    log(f"phase 4 rows/s: {json.dumps(per_query)}")
+    log_residency(torch, "phase 4", on_card)
     return launches, shapes, inputs
 
+
+def drive_pressure(torch, p, device=None) -> dict:
+    """Phase 8: a hot-set budget (P_TPU_HOT_BYTES) below the groupby query's
+    resident bytes, so that blocks are evicted and the prefetcher ships the
+    next block from the encoded-block cache (on its own CUDA stream on the
+    card) while one aggregates. The query runs twice; both answers equal
+    the CPU engine's. Returns the launch counts of the phase."""
+    import os
+
+    from parseable_tpu_torch.ops import groupby_cuda as G
+    from parseable_tpu_torch.ops.hotset import get_hotset
+    from parseable_tpu_torch.query.session import QuerySession
+
+    on_card = device is None or torch.device(device).type == "cuda"
+    text = QUERIES["groupby"].format(stream=STREAM)
+    cpu = QuerySession(p, engine="cpu").query(text)
+    QuerySession(p, engine="gpu", device=device).query(text)  # every block resident
+    hs = get_hotset()
+    blocks = sorted(slot.entry.nbytes for slot in hs._entries.values())
+    resident = hs.resident_bytes
+    budget = int(2.5 * blocks[-1])
+    check(budget < resident, f"budget {budget} not below the resident {resident} bytes")
+    for name in G.LAUNCHES:
+        G.LAUNCHES[name] = 0
+    os.environ["P_TPU_HOT_BYTES"] = str(budget)
+    try:
+        runs = []
+        for run in ("first", "second"):
+            t = time.perf_counter()
+            res = QuerySession(p, engine="gpu", device=device).query(text)
+            if on_card:
+                torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            same_result(f"pressure {run}", res.table, cpu.table)
+            r, hot = res.stats["device_routes"], res.stats["stages"]["hotset"]
+            check(r["cpu_fallback"] == 0, f"pressure {run}: cpu_fallback {r}")
+            log(f"phase 8 groupby {run} (hot-set budget {budget} of {resident} resident bytes): "
+                f"wall {dt * 1e3:.3f} ms, stages "
+                f"{ {k: v for k, v in res.stats['stages'].items() if k != 'hotset'} } "
+                f"routes {r} hotset {hot}")
+            runs.append(hot)
+    finally:
+        os.environ.pop("P_TPU_HOT_BYTES", None)
+    get_hotset()  # re-rooted at the default budget
+    check(runs[-1]["evictions"] > 0, f"pressure: no eviction {runs}")
+    check(sum(h["prefetch_hits"] for h in runs) > 0, f"pressure: no prefetch hit {runs}")
+    check(all(h["prefetch_errors"] == 0 for h in runs), f"pressure: prefetch errors {runs}")
+    launches = dict(G.LAUNCHES)
+    if on_card:
+        check(launches["additive_groupby"] > 0, "pressure: kernel A never launched")
+    log(f"phase 8 launches: {launches}")
+    return launches
 
 
 # ------------------------------------------------------------ statistics
@@ -995,38 +1160,12 @@ def drive_stats(p, device=None) -> tuple[dict, dict, dict]:
             c[name] = 0
     try:
         for qname, sql in STATS_QUERIES.items():
-            text = sql.format(stream=STREAM)
             before = dict(SC.LAUNCHES)
-            out: dict[str, list] = {}
-            for engine in ("gpu", "cpu"):
-                for run in ("cold", "warm"):
-                    sess = QuerySession(p, engine=engine, device=device if engine == "gpu" else None)
-                    t = time.perf_counter()
-                    res = sess.query(text)
-                    if engine == "gpu" and on_card:
-                        torch.cuda.synchronize()
-                    dt = time.perf_counter() - t
-                    out.setdefault(engine, []).append(res)
-                    log(
-                        f"phase 7 {qname} {engine} {run}: {res.table.num_rows} rows out, "
-                        f"{res.stats['rows_scanned']} scanned in {dt:.3f} s = "
-                        f"{res.stats['rows_scanned'] / dt:.6g} rows/s stages {res.stats['stages']}"
-                        + (f" routes {res.stats['device_routes']}" if engine == "gpu" else "")
-                    )
-            if on_card:
-                out["gpu"].append(profiled_query(torch, QuerySession(p, device=device), qname, text,
-                                                 "phase 7"))
-            for res in out["gpu"]:
-                routes = res.stats["device_routes"]
-                check(routes["cpu_fallback"] == 0, f"{qname}: cpu_fallback {routes}")
-                check(routes["device_cold"] > 0, f"{qname}: no block ran on the device {routes}")
-                check(res.stats["scan_errors"] == 0, f"{qname}: scan errors")
-            for res in out["gpu"] + out["cpu"][1:]:
-                same_result(qname, res.table, out["cpu"][0].table, STATS_REL)
-            check(out["gpu"][0].table.num_rows > 0, f"{qname}: empty result")
+            out = state_runs(torch, p, qname, sql.format(stream=STREAM), "phase 7", device,
+                             STATS_REL)
             delta = {k: SC.LAUNCHES[k] - before[k] for k in SC.LAUNCHES}
-            log(f"phase 7 {qname}: gpu == cpu, launches {delta}, first rows "
-                f"{json.dumps(rows_of(out['gpu'][0].table)[:2], default=str)}")
+            log(f"phase 7 {qname}: gpu == cpu in every cache state, launches {delta}, first rows "
+                f"{json.dumps(rows_of(out[0].table)[:2], default=str)}")
     finally:
         SC.distinct_fold, SC.pct_histogram, SC.centered_m2 = (real[k] for k in STATS_KERNELS)
     launches = {**G.LAUNCHES, **SC.LAUNCHES}
@@ -1036,6 +1175,7 @@ def drive_stats(p, device=None) -> tuple[dict, dict, dict]:
     m2_regimes = {str(key): SC.m2_regime(key[0], key[2]) for key in shapes["centered_m2"]}
     check(set(m2_regimes.values()) == {"compact"}, f"K7 left the compact regime: {m2_regimes}")
     log(f"phase 7 launches: {launches}, K7 regimes {m2_regimes}")
+    log_residency(torch, "phase 7", on_card)
     return launches, shapes, inputs
 
 # ------------------------------------------------------------------ server
@@ -1229,7 +1369,8 @@ def server_queries(torch, G, server, want: dict, where: str, profile_status: boo
             walls.setdefault(qname, {})[run] = wall
             routes = out["stats"]["device_routes"]
             check(routes["cpu_fallback"] == 0, f"{where} {qname}: cpu_fallback {routes}")
-            check(routes["device_cold"] > 0, f"{where} {qname}: no block on the device {routes}")
+            check(routes["device_cold"] + routes["device_warm"] > 0,
+                  f"{where} {qname}: no block on the device {routes}")
             check(out["stats"]["scan_errors"] == 0, f"{where} {qname}: scan errors")
             check_against_oracle(qname, out["records"], want[qname], where)
             log(
@@ -1401,6 +1542,9 @@ def drive_server(torch, G, seed: int, device=None) -> dict:
             boot_module(work, acked)
         return launches
     finally:
+        from parseable_tpu_torch.ops.link import get_link
+
+        get_link().flush()  # now, not at exit into a deleted directory
         shutil.rmtree(work, ignore_errors=True)
 
 
@@ -1422,6 +1566,8 @@ def main() -> int:
         from parseable_tpu_torch.ops import cuda_lib
         from parseable_tpu_torch.ops import groupby_cuda as G
         from parseable_tpu_torch.ops import stats_cuda as SC
+        from parseable_tpu_torch.ops.enccache import shutdown_enccache
+        from parseable_tpu_torch.ops.hotset import get_hotset
         from parseable_tpu_torch.utils.devicecheck import probe
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
@@ -1473,10 +1619,12 @@ def main() -> int:
     rule_sweep(torch, G, timer, gen)
     phase_done("2 regimes, edges, rules")
 
-    # -- phases 3, 4 and 7: the lake, then the main path and the statistics
-    # queries on it
+    # -- phases 3, 4, 7 and 8: the lake, then the main path and the
+    # statistics queries on it in every cache state, then the hot set under
+    # pressure
     work = ROOT / "build" / "smoke_lake"
     shutil.rmtree(work, ignore_errors=True)
+    p = None
     try:
         p = build_lake(work, args.seed, MINUTES, N_BLOCK)
         phase_done("3 lake")
@@ -1484,7 +1632,13 @@ def main() -> int:
         phase_done("4 main path")
         stats_launches, stats_shapes, stats_inputs_ = drive_stats(p)
         phase_done("7 statistics")
+        pressure_launches = drive_pressure(torch, p)
+        phase_done("8 hot-set pressure")
     finally:
+        if p is not None:
+            p.shutdown()
+        get_hotset().clear()  # the lake's blocks leave the card
+        shutdown_enccache()
         shutil.rmtree(work, ignore_errors=True)
 
     # -- phase 6: the HTTP server, ingest and queries, on the card
@@ -1554,6 +1708,7 @@ def main() -> int:
                 "launches_lake": launches.get(name, 0),
                 "launches_stats": stats_launches[name],
                 "launches_server": server_launches.get(name, 0),
+                "launches_pressure": pressure_launches.get(name, 0),
                 "max_abs_err": top["max_abs_err"],
                 "ms": top["ms"],
                 "plain_ms": top["plain_ms"],
@@ -1565,9 +1720,19 @@ def main() -> int:
                 "inputs": "main path, L2-cold",
                 "ms_l2_warm": top["ms_l2_warm"],
                 "profiler_ms": top["profiler_ms"],
+                "sum_ms": top["sum_ms"],
             }
         )
     phase_done("5 kernel times")
+    # the work dirs are gone, and nothing the run did (phase 5's executors
+    # are built without options) rooted a link profile or an encoded-block
+    # cache anywhere else under the checkout
+    from parseable_tpu_torch.ops.link import get_link
+
+    get_link().flush()
+    left = sorted(str(f) for name in ("link_profile.json", "encoded_cache")
+                  for f in ROOT.rglob(name))
+    check(not left, f"state outlived the work dirs: {left}")
     log(f"seconds per phase: {json.dumps(seconds)}")
     log(smi)  # the card, as nvidia-smi names it and its power limit
     print(json.dumps({"kernels": report}))

@@ -34,6 +34,17 @@ def _env_bool(name: str, default: bool) -> bool:
     return v.lower() in ("1", "true", "yes", "on")
 
 
+# Accessors for the budgets and the switch that the hot set and the
+# encoded-block cache read at call time rather than through `Options`
+# (P_TPU_HOT_BYTES, P_TPU_ENC_CACHE_BYTES, P_TPU_ENC_CACHE).
+def env_str(name: str, default: str | None = None) -> str | None:
+    return _env(name, default)
+
+
+def env_int(name: str, default: int) -> int:
+    return _env_int(name, default)
+
+
 class Compression(str, Enum):
     """Parquet compression (default lz4_raw, as in the JAX package)."""
 

@@ -12,8 +12,10 @@ does:
   commit, byte-compatible with the JAX package's lake;
 - `shutdown`: flush, convert, upload.
 
-The upload pool, the enrichment queue, remote backends and distributed
-(per-ingestor) snapshots are later slices.
+Each uploaded Parquet file goes to the enrichment queue after its snapshot
+commit (`storage/enrichment.py`), which seeds the encoded-block cache off
+the commit path; sync ticks and `shutdown` drain it. The upload pool,
+remote backends and distributed (per-ingestor) snapshots are later slices.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from parseable_tpu_torch.config import Options, StorageOptions, generate_node_id
 from parseable_tpu_torch.event.format import LogSource, SchemaVersion
 from parseable_tpu_torch.metastore import MetastoreError, ObjectStoreMetastore
 from parseable_tpu_torch.storage import ObjectStoreFormat, rfc3339_now
+from parseable_tpu_torch.storage.enrichment import EnrichmentQueue
 from parseable_tpu_torch.storage.object_storage import LocalFS
 from parseable_tpu_torch.streams import _HOSTNAME, LogStreamMetadata, Stream, Streams
 from parseable_tpu_torch.utils.arrowutil import merge_schemas
@@ -91,6 +94,8 @@ class Parseable:
         self.sync_pool = ThreadPoolExecutor(
             max_workers=max(1, self.options.sync_workers), thread_name_prefix="sync"
         )
+        # post-upload encoded-block cache seed, off the commit path
+        self.enrichment = EnrichmentQueue(self)
         self._shutdown_done = False
 
     def _load_or_create_node_id(self) -> str:
@@ -237,6 +242,7 @@ class Parseable:
                 self._upload_claimed(stream, files)
             except Exception:
                 logger.exception("pipelined sync failed for %s", stream.name)
+        self.enrichment.drain()
 
     def upload_files_from_staging(self, stream: Stream) -> list[str]:
         """Upload tick for one stream: upload its staged parquet, commit the
@@ -282,7 +288,10 @@ class Parseable:
                 for f, _, _ in done:
                     stream.unclaim_parquet(f)
                 return []
-            for f, _, _ in done:
+            for f, entry, _ in done:
+                # the queue takes a hardlink first, so the staged file can
+                # go while its background read is still queued
+                self.enrichment.submit(stream.name, entry, f)
                 f.unlink(missing_ok=True)
                 stream.unclaim_parquet(f)
         return uploaded
@@ -299,15 +308,18 @@ class Parseable:
                 fut.result()
             except Exception:
                 logger.exception("object store sync failed for %s", name)
+        # deterministic cycle end for tests and shutdown; commits never wait here
+        self.enrichment.drain()
 
     def shutdown(self) -> None:
-        """Flush staging, convert, upload, then stop the sync pool
-        (sync.rs:71-86). Idempotent."""
+        """Flush staging, convert, upload, then stop the enrichment worker
+        and the sync pool (sync.rs:71-86). Idempotent."""
         if self._shutdown_done:
             return
         self._shutdown_done = True
         self.local_sync(shutdown=True)
         self.sync_all_streams()
+        self.enrichment.shutdown()
         self.sync_pool.shutdown(wait=True)
 
     # --------------------------------------------------------------- catalog

@@ -2,18 +2,28 @@
 
 Counterpart of `parseable_tpu/query/executor_tpu.py`, dense aggregate path
 only: `_execute_aggregate_tpu` (:1485), `_dense_interim` (:2039), the fold
-of `_get_program`/`fold_one` (:2762/:2852), `_flush_state` (:3159) and
-`_transfer`/`_bitcast_from_u8` (:3286/:3269). Per scanned block:
+of `_get_program`/`fold_one` (:2762/:2852), `_flush_state` (:3159),
+`_transfer` (:3286) and the block cache (`_encoded_block` :1416, the
+prefetcher :1304-1365). Per scanned block:
 
-1. columns encode on the host (`ops/device.py`): numerics -> f32, strings ->
-   batch-local dictionary codes, timestamps -> int32 ms relative to a
-   day-aligned block origin;
+1. the block resolves through three tiers (`_encoded_block`): the device
+   hot set (`ops/hotset.py`: the block's tensors stay on the card, no
+   copy), the encoded-block disk cache (`ops/enccache.py`: no Parquet
+   decode, no encode, one file read and one copy), or a live encode on the
+   host (`ops/device.py`: numerics -> f32, strings -> batch-local
+   dictionary codes, timestamps -> int32 ms relative to a day-aligned
+   block origin), which writes behind into the disk cache. Lake blocks
+   the scan found in either cache arrive as zero-column stubs; a
+   query-aware prefetcher (`ops/prefetch.py`) ships the next ones from the
+   disk cache on a CUDA stream of its own;
 2. the WHERE tree's string predicates evaluate once per dictionary value
    into boolean LUTs; the group keys' batch dictionaries fold into global
    dictionaries, giving batch->global remap LUTs;
-3. the encoded columns, LUTs and remaps pack into ONE pinned host buffer and
-   cross to the card in ONE non_blocking copy, then are carved back into
-   typed tensors with `.view(dtype)`;
+3. a shipped block's encoded columns pack into ONE pinned host buffer and
+   cross in ONE non_blocking copy, carved back into typed tensors with
+   `.view(dtype)`; that payload is what the hot set keeps. The query's
+   LUTs and remaps cross in a small copy of their own, and null-free
+   columns share the query's `ones` mask;
 4. the fold runs on the card: WHERE mask (LUT gathers, compares, IN-lists,
    time bounds), group ids `sum(code_k * stride_k)` (dict remap gathers and
    floor-divided time bins), then `fused_groupby_block` — hand kernels A and
@@ -25,12 +35,16 @@ of `_get_program`/`fold_one` (:2762/:2852), `_flush_state` (:3159) and
    the host in f64 through the CPU engine's shared finalize and
    `_order_limit`.
 
+On the card, sampled block copies and every readback feed the link profile
+(`ops/link.py`), which prices the hot set's evictions.
+
 Shapes outside this slice raise `UnsupportedOnDevice` and take the CPU
 engine, counted in `route_stats["cpu_fallback"]`: aggregates over
 expressions, group spaces beyond `DENSE_G_MAX`, distinct state past 2^24
 (2^27 for HLL) entries, histograms past `PCT_MAX_ELEMS`, distinct over a
-timestamp column, unencodable columns, and plain SELECT. A missing or failing card raises; the executor
-never answers a GPU query on the CPU because the card is unavailable.
+timestamp column, unencodable columns, and plain SELECT. A missing or
+failing card raises; the executor never answers a GPU query on the CPU
+because the card is unavailable. A cache miss is not a route off the card.
 
 Precision: per-block reductions run in f32 (blocks <= 2^22 rows keep counts
 exact; sums carry ~1e-6 relative error against the CPU engine's f64);
@@ -39,14 +53,16 @@ cross-epoch accumulation is f64 on the host. Time compares are exact at ms.
 
 from __future__ import annotations
 
+import itertools
 import logging
 import re
+import threading
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass
 from dataclasses import field as dc_field
 from datetime import UTC, datetime, timedelta
-from typing import Any, Iterator
+from typing import Any, Callable, Iterator
 
 import numpy as np
 import pyarrow as pa
@@ -56,17 +72,21 @@ from parseable_tpu_torch import DEFAULT_TIMESTAMP_KEY
 from parseable_tpu_torch.config import Options
 from parseable_tpu_torch.ops import kernels, stats_cuda
 from parseable_tpu_torch.ops.device import EncodedBatch, EncodedColumn, encode_table
+from parseable_tpu_torch.ops.enccache import get_enccache
 from parseable_tpu_torch.ops.hll_sketch import HLL_M, luts_for_dictionary
+from parseable_tpu_torch.ops.hotset import HotEntry, get_hotset
+from parseable_tpu_torch.ops.link import get_link
+from parseable_tpu_torch.ops.prefetch import ScanPrefetcher
 from parseable_tpu_torch.query import sql as S
 from parseable_tpu_torch.query.executor import AggSpec, HashAggregator, QueryExecutor
 from parseable_tpu_torch.query.planner import LogicalPlan
 from parseable_tpu_torch.query.sketch import DEVICE_NB, QuantileSketch, hist_quantile
+from parseable_tpu_torch.query.stubs import SOURCE_ID_META, hot_key, is_stub
 from parseable_tpu_torch.utils.devicecheck import require_device
 from parseable_tpu_torch.utils.timeutil import parse_duration, parse_rfc3339
 
 logger = logging.getLogger(__name__)
 
-SOURCE_ID_META = b"ptpu_source_id"
 # pow2_block's ceiling: tables beyond this split before encoding
 MAX_BLOCK_ROWS = 1 << 22
 # largest dense global group space the device accumulator holds; beyond it
@@ -83,6 +103,18 @@ _ALIGN = 16
 
 class UnsupportedOnDevice(Exception):
     pass
+
+
+def _holds_time(col: EncodedColumn) -> bool:
+    """Does an encoded column hold timestamps? A "time" column does; so
+    does one dictionary-encoded for a distinct aggregate, whose dictionary
+    then holds datetimes."""
+    if col.kind == "time":
+        return True
+    if col.kind != "dict" or not col.dictionary:
+        return False
+    first = next((v for v in col.dictionary if v is not None), None)
+    return isinstance(first, datetime)
 
 
 def _pow2(n: int, minimum: int = 8) -> int:
@@ -799,26 +831,15 @@ def _chan_merge_m2(acc_n, acc_s, acc_m2, b_n, b_s, b_m2) -> torch.Tensor:
 # ---------------------------------------------------------------- transfer
 
 
-def _transfer(
-    enc: EncodedBatch, device: torch.device, aux: dict[str, np.ndarray], ones: torch.Tensor
-) -> tuple[dict, int]:
-    """Ship one encoded block plus its LUTs/remaps (`aux`) to `device`.
-
-    Every buffer packs into ONE host payload (pinned when the target is a
-    card) at 16-byte-aligned offsets, crosses in ONE non_blocking copy, and
-    is carved back into typed tensors with `.view(dtype)`. Null-free
-    columns share the device `ones` mask instead of shipping a validity
-    array each — transfer bytes are the scan budget. Returns (tensors by
-    name, bytes shipped)."""
-    parts: list[tuple[str, np.ndarray]] = []
-    for name, col in enc.columns.items():
-        parts.append((name, col.values))
-        if not col.all_valid:
-            parts.append((f"{name}__valid", col.valid))
-    if enc.num_rows != enc.block_rows:
-        parts.append(("__rowmask", enc.row_mask))
-    parts.extend(aux.items())
-
+def _copy(
+    parts: list[tuple[str, np.ndarray]], device: torch.device, sample: bool = False
+) -> tuple[dict[str, torch.Tensor], int]:
+    """Pack `parts` into ONE host buffer (pinned when the target is a card)
+    at 16-byte-aligned offsets, cross in ONE non_blocking copy on the
+    current stream, and carve the payload back into typed tensors with
+    `.view(dtype)`. `sample` times the copy to completion (the stream is
+    drained first, so the time is the copy's alone) and feeds it to the
+    link profile. Returns (tensors by name, bytes shipped)."""
     offsets = []
     off = 0
     for _, arr in parts:
@@ -829,17 +850,60 @@ def _transfer(
     host_np = host.numpy()
     for (_, arr), o in zip(parts, offsets):
         host_np[o : o + arr.nbytes] = np.ascontiguousarray(arr).view(np.uint8).reshape(-1)
+    if sample:
+        stream = torch.cuda.current_stream(device)
+        stream.synchronize()  # queued work first: the time is the copy's alone
+        t0 = time.perf_counter()
     payload = host.to(device, non_blocking=pinned)
-
+    if sample:
+        stream.synchronize()
+        get_link().record_h2d(off, time.perf_counter() - t0)
     dev: dict[str, torch.Tensor] = {}
     for (key, arr), o in zip(parts, offsets):
-        seg = payload[o : o + arr.nbytes]
-        dev[key] = seg.view(_TORCH_DTYPES[arr.dtype])
-    for name, col in enc.columns.items():
-        if col.all_valid:
-            dev[f"{name}__valid"] = ones
-    dev["__ones"] = ones
+        dev[key] = payload[o : o + arr.nbytes].view(_TORCH_DTYPES[arr.dtype])
     return dev, off
+
+
+# block copies of at least this many bytes are the link profile's samples
+_SAMPLE_BYTES = 1 << 20
+_BIG_COPIES = itertools.count(1)
+
+
+def _ship_block(enc: EncodedBatch, device: torch.device) -> tuple[dict, int, bool]:
+    """Ship one encoded block (what the hot set keeps): column values,
+    validity where a column has nulls, and the padding mask. Null-free
+    columns ship no validity: the executor attaches its shared `ones` mask
+    per query. On the card, the first and every 8th block copy of 1 MiB or
+    more is timed to completion and fed to the link profile (the JAX
+    package's sampled sync, K4). Returns (tensors by name, bytes shipped,
+    whether this copy was a sample)."""
+    parts: list[tuple[str, np.ndarray]] = []
+    for name, col in enc.columns.items():
+        parts.append((name, col.values))
+        if not col.all_valid:
+            parts.append((f"{name}__valid", col.valid))
+    if enc.num_rows != enc.block_rows:
+        # the padding mask lives with the block: the host copy is stripped
+        # when the block enters the hot set
+        parts.append(("__rowmask", enc.row_mask))
+    sample = False
+    if device.type == "cuda" and sum(a.nbytes for _, a in parts) >= _SAMPLE_BYTES:
+        n = next(_BIG_COPIES)
+        sample = n == 1 or n % 8 == 0
+    dev, nbytes = _copy(parts, device, sample)
+    return dev, nbytes, sample
+
+
+def _strip_host_values(enc: EncodedBatch) -> None:
+    """Free the host-side ndarray copies before caching (dictionaries,
+    vmin/vmax, flags and the time origin stay — they're what queries
+    need). Nothing on the fold path reads `values`, `valid` or `row_mask`
+    after the block has shipped."""
+    empty = np.empty(0, np.int32)
+    for col in enc.columns.values():
+        col.values = empty
+        col.valid = empty
+    enc.row_mask = np.empty(0, bool)
 
 
 _TORCH_DTYPES = {
@@ -872,23 +936,41 @@ class GpuQueryExecutor(QueryExecutor):
     ):
         super().__init__(plan)
         self.options = options or Options()
+        # the process-wide link profile and encoded-block cache are rooted
+        # in the staging dir of a caller's own options; without them they
+        # stay where they are (a pathless profile, no re-rooted cache)
+        self._staging_options = options
         self.device = require_device(device)
         self._ones: dict[int, torch.Tensor] = {}
         # per-query route observability: how every scanned block was
         # dispatched, plus the transfer bytes each direction cost
         self.route_stats: dict[str, int] = {
-            "device_cold": 0,  # encoded + shipped this query
+            "device_warm": 0,  # hot-set resident: no block bytes shipped
+            "device_cold": 0,  # encoded (or read from the enccache) + shipped
             "cpu_fallback": 0,  # unsupported on device
-            "h2d_bytes": 0,
+            "h2d_bytes": 0,  # block copies and the query's aux copies
+            "h2d_aux_bytes": 0,  # of those, the LUT and remap copies
             "d2h_bytes": 0,
         }
+        # the prefetch worker ships (and counts bytes) beside the consumer
+        self._stats_lock = threading.Lock()
         # host wall ms per stage of the device path: host encode + LUTs
-        # ("encode"), packing + the copy's enqueue ("transfer"), enqueue of
-        # the fold's device work ("fold"), and the readback, which waits
-        # for the device to finish, + finalize ("finalize")
+        # ("encode"), encoded-block cache reads ("enccache"), packing + the
+        # copies' enqueue ("transfer"), enqueue of the fold's device work
+        # ("fold"), and the readback, which waits for the device to
+        # finish, + finalize ("finalize")
         self.stage_ms: dict[str, float] = dict.fromkeys(
-            ("encode", "transfer", "fold", "finalize"), 0.0
+            ("encode", "enccache", "transfer", "fold", "finalize"), 0.0
         )
+        # query-aware prefetch (ops/prefetch.py): built lazily on the first
+        # source-id'd block, once the scan has published its ordered stub
+        # list; closed in execute()'s finally on every exit path
+        self._prefetcher: ScanPrefetcher | None = None
+        self._prefetch_tried = False
+        self._side_stream = None  # the prefetch worker's CUDA stream
+        self._sample_aux = False  # the last block copy was a link sample
+        if self.device.type == "cuda" and options is not None:
+            get_link(options)  # persist what this process measures
 
     @contextmanager
     def _stage(self, name: str):
@@ -901,17 +983,21 @@ class GpuQueryExecutor(QueryExecutor):
     # ------------------------------------------------------------------ main
 
     def execute(self, tables: Iterator[pa.Table]) -> pa.Table:
-        if self.plan.is_aggregate:
-            try:
-                return self._execute_aggregate_gpu(tables)
-            except UnsupportedOnDevice as e:
-                # plan-time rejection: the iterator is untouched
-                logger.info("GPU path unsupported (%s); CPU engine", e)
-                self.route_stats["cpu_fallback"] += 1
-                return super()._execute_aggregate(tables)
-        # plain SELECT (device WHERE mask + host filter) is later work
-        self.route_stats["cpu_fallback"] += 1
-        return super()._execute_select(tables)
+        try:
+            if self.plan.is_aggregate:
+                try:
+                    return self._execute_aggregate_gpu(tables)
+                except UnsupportedOnDevice as e:
+                    # plan-time rejection: the iterator is untouched; hot
+                    # stubs are read from their sources for the CPU engine
+                    logger.info("GPU path unsupported (%s); CPU engine", e)
+                    self.route_stats["cpu_fallback"] += 1
+                    return super()._execute_aggregate(self._materialize(t) for t in tables)
+            # plain SELECT (device WHERE mask + host filter) is later work
+            self.route_stats["cpu_fallback"] += 1
+            return super()._execute_select(tables)
+        finally:
+            self._close_prefetcher()
 
     def _device_ones(self, block_rows: int) -> torch.Tensor:
         ones = self._ones.get(block_rows)
@@ -920,10 +1006,206 @@ class GpuQueryExecutor(QueryExecutor):
             self._ones[block_rows] = ones
         return ones
 
+    def _count(self, key: str, n: int) -> None:
+        with self._stats_lock:
+            self.route_stats[key] += n
+
     def _readback(self, x: torch.Tensor, dtype=np.float64) -> np.ndarray:
         """Device -> host readback, priced into route_stats."""
-        self.route_stats["d2h_bytes"] += x.numel() * x.element_size()
+        self._count("d2h_bytes", x.numel() * x.element_size())
         return x.cpu().numpy().astype(dtype)
+
+    # ----------------------------------------------------------- block cache
+
+    # set by the session: re-reads a source when a stubbed block got evicted
+    # between the provider's hot check and execution, or must fold on the
+    # host
+    source_loader: Callable[[bytes], pa.Table] | None = None
+    # set by the session: the StreamScan whose `prefetchable` list (ordered
+    # enccache-servable stub sources) drives the query-aware prefetcher
+    prefetch_scan = None
+
+    def _ensure_prefetcher(self, needed: set[str] | None, dict_cols: set[str]) -> None:
+        """Build the prefetcher once the scan has published its ordered
+        stub list (first source-id'd block => the list is complete)."""
+        if self._prefetch_tried or self._prefetcher is not None:
+            return
+        self._prefetch_tried = True
+        sources = list(getattr(self.prefetch_scan, "prefetchable", ()) or ())
+        if len(sources) < 2:
+            return
+
+        def ship(source_id: bytes) -> tuple | None:
+            return self._prefetch_ship(source_id, needed, dict_cols)
+
+        self._prefetcher = ScanPrefetcher(sources, ship)
+
+    def _prefetch_ship(
+        self, source_id: bytes, needed: set[str] | None, dict_cols: set[str]
+    ) -> tuple | None:
+        """Worker-thread half of the prefetcher: enccache -> device -> hot
+        set. On the card the copy runs on the worker's own stream, and the
+        entry carries an event recorded after it, which a consumer's stream
+        waits on. Returns the hot key on a completed ship, None when
+        skipped."""
+        hotset = get_hotset()
+        key = hot_key(source_id, needed, dict_cols)
+        if hotset.contains(key):
+            return None
+        enccache = get_enccache(self._staging_options)
+        if enccache is None:
+            return None
+        enc = enccache.get(source_id, needed, dict_cols)
+        if enc is None:
+            return None
+        est = sum(
+            c.values.nbytes + (0 if c.all_valid else c.valid.nbytes) for c in enc.columns.values()
+        )
+        if est > hotset.budget:
+            return None  # could never be admitted; don't ship it
+        ready = None
+        if self.device.type == "cuda":
+            if self._side_stream is None:
+                self._side_stream = torch.cuda.Stream(self.device)
+            with torch.cuda.stream(self._side_stream):
+                dev, nbytes, _ = _ship_block(enc, self.device)
+                ready = torch.cuda.Event()
+                ready.record(self._side_stream)
+        else:
+            dev, nbytes, _ = _ship_block(enc, self.device)
+        self._count("h2d_bytes", nbytes)
+        _strip_host_values(enc)
+        hotset.put(key, HotEntry(dev=dev, meta=enc, nbytes=nbytes, ready=ready))
+        # admission control may have refused the put: only report a
+        # completed ship when the entry is actually resident
+        return key if hotset.contains(key) else None
+
+    def _close_prefetcher(self) -> None:
+        pf, self._prefetcher = self._prefetcher, None
+        if pf is None:
+            return
+        counters = pf.close()
+        with self._stats_lock:
+            self.route_stats.update(counters)
+
+    def _materialize(self, table: pa.Table) -> pa.Table:
+        """Real rows for a table (loads the source when it's a hot stub)."""
+        if not is_stub(table):
+            return table
+        source = (table.schema.metadata or {})[SOURCE_ID_META]
+        if self.source_loader is None:
+            raise UnsupportedOnDevice("stub block without a source loader")
+        return self.source_loader(source)
+
+    def _resident(self, entry: HotEntry) -> dict:
+        """A hot entry's tensors, ready for this query's stream: a block the
+        prefetcher copied on its side stream is waited for, and its memory
+        is marked in use by this stream, so that an eviction during the
+        query cannot hand it to another allocation under a running
+        kernel."""
+        if entry.ready is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(entry.ready)
+            for t in entry.dev.values():
+                t.record_stream(stream)
+        return entry.dev
+
+    def _encoded_block(
+        self,
+        table: pa.Table,
+        needed: set[str] | None,
+        dict_cols: set[str],
+        check: Callable[[EncodedBatch], None],
+    ) -> tuple[EncodedBatch, dict, str]:
+        """Encode a table (or fetch its device-resident encoding).
+
+        Resolution order per source-id'd block: device hot set (no block
+        copy) -> encoded-block disk cache (no Parquet decode, no dictionary
+        encode: one file read and one copy; ops/enccache.py) -> live
+        encode, which writes behind into the disk cache. Staging data (no source id) always
+        encodes live. `check` sees the encoding before any copy and raises
+        UnsupportedOnDevice for a block the device cannot fold. Returns
+        (encoding, block tensors, route: "device_warm" or "device_cold");
+        the caller counts the route once the block folds on the device."""
+        hotset = get_hotset()
+        source = (table.schema.metadata or {}).get(SOURCE_ID_META)
+        key = None
+        enccache = None
+        if source is not None:
+            key = hot_key(source, needed, dict_cols)
+            # kick the lookahead BEFORE resolving this block: while it
+            # ships and aggregates, the next blocks ship in the background
+            self._ensure_prefetcher(needed, dict_cols)
+            pf = self._prefetcher
+            if pf is not None:
+                pf.on_block(source)
+            # a ship of exactly this block that is queued or in flight
+            # finishes first (and is registered as the prefetcher's), so the
+            # block is not shipped twice and a hit on it counts as the
+            # prefetcher's; then fetch untouched, and let the PREFETCHER
+            # decide (atomically, under its condition) whether this hit was
+            # its own ship's one planned consumption — only a non-prefetch
+            # hit is proven reuse
+            if pf is not None:
+                pf.claim(source)
+            entry = hotset.get(key, touch=False)
+            if entry is not None and all(
+                t.device.type == self.device.type for t in entry.dev.values()
+            ):
+                # (an entry another executor left on the other device type
+                # counts as a miss and is replaced below)
+                check(entry.meta)
+                self._sample_aux = False
+                if pf is None or not pf.consumed(key):
+                    hotset.touch(key)
+                return entry.meta, self._resident(entry), "device_warm"
+            enccache = get_enccache(self._staging_options)
+            if enccache is not None:
+                with self._stage("enccache"):
+                    enc = enccache.get(source, needed, dict_cols)
+                if enc is not None:
+                    check(enc)
+                    with self._stage("transfer"):
+                        dev, nbytes, self._sample_aux = _ship_block(enc, self.device)
+                    self._count("h2d_bytes", nbytes)
+                    _strip_host_values(enc)
+                    hotset.put(key, HotEntry(dev=dev, meta=enc, nbytes=nbytes))
+                    return enc, dev, "device_cold"
+        table = self._materialize(table)
+        with self._stage("encode"):
+            enc = encode_table(table, needed, dict_columns=dict_cols)
+        if enc is None:
+            raise UnsupportedOnDevice("unencodable column in batch")
+        check(enc)
+        with self._stage("transfer"):
+            dev, nbytes, self._sample_aux = _ship_block(enc, self.device)
+        self._count("h2d_bytes", nbytes)
+        if key is not None:
+            if enccache is not None:
+                # snapshot-by-reference, then persist off the query path
+                enccache.put_async(source, enc)
+            _strip_host_values(enc)
+            hotset.put(key, HotEntry(dev=dev, meta=enc, nbytes=nbytes))
+        return enc, dev, "device_cold"
+
+    def _attach(self, block: dict, enc: EncodedBatch, aux: dict[str, np.ndarray]) -> dict:
+        """This query's view of a block: its tensors, the shared `ones`
+        mask for null-free columns, and the query's LUTs and remaps
+        (`aux`), shipped in their own small pinned copy. Where the block's
+        own copy was a link-profile sample, this small copy is timed too:
+        it teaches the profile the per-copy latency."""
+        ones = self._device_ones(enc.block_rows)
+        dev = dict(block)
+        for name, col in enc.columns.items():
+            if col.all_valid:
+                dev[f"{name}__valid"] = ones
+        dev["__ones"] = ones
+        if aux:
+            aux_dev, nbytes = _copy(list(aux.items()), self.device, self._sample_aux)
+            self._count("h2d_bytes", nbytes)
+            self._count("h2d_aux_bytes", nbytes)
+            dev.update(aux_dev)
+        return dev
 
     # -------------------------------------------------------------- aggregate
 
@@ -998,30 +1280,30 @@ class GpuQueryExecutor(QueryExecutor):
             pcts = [(si, self._read_hist(h, acc_groups)) for si, h in zip(lay.pct_idx, pacc)]
             self._flush_state(self._readback(acc), key_specs, agg, specs, lay, dists, pcts)
 
+        def check_block(enc: EncodedBatch) -> None:
+            """Before any copy: the block's columns fit the fold."""
+            for i in numeric_idx | set(lay.countcol_idx):
+                col = enc.columns.get(specs[i].arg.name)
+                if col is None:
+                    raise UnsupportedOnDevice(f"aggregate column {specs[i].arg.name} missing")
+                if col.kind in ("dict", "time") and i in numeric_idx:
+                    raise UnsupportedOnDevice(f"numeric aggregate over {col.kind} column")
+            for dk in dkeys:
+                # a distinct column encodes as dictionary codes, which time
+                # bounds, time compares and bins would then read as ms (the
+                # JAX engine answers such queries wrong). Read from the
+                # encoding, so that a stub block is checked too
+                col = enc.columns.get(dk.column)
+                if col is not None and _holds_time(col):
+                    raise UnsupportedOnDevice(f"distinct over timestamp column {dk.column}")
+
         force_cpu_rest = False
         for table in self._blocks(tables):
             self._check_deadline()
             try:
                 if force_cpu_rest:
                     raise UnsupportedOnDevice("device state budget exceeded earlier in the scan")
-                for dk in dkeys:
-                    # a distinct column encodes as dictionary codes, which time
-                    # bounds, time compares and bins would then read as ms
-                    # (the JAX engine answers such queries wrong)
-                    if dk.column in table.column_names and pa.types.is_timestamp(
-                        table.schema.field(dk.column).type
-                    ):
-                        raise UnsupportedOnDevice(f"distinct over timestamp column {dk.column}")
-                with self._stage("encode"):
-                    enc = encode_table(table, needed, dict_columns=dict_cols)
-                if enc is None:
-                    raise UnsupportedOnDevice("unencodable column in batch")
-                for i in numeric_idx | set(lay.countcol_idx):
-                    col = enc.columns.get(specs[i].arg.name)
-                    if col is None:
-                        raise UnsupportedOnDevice(f"aggregate column {specs[i].arg.name} missing")
-                    if col.kind in ("dict", "time") and i in numeric_idx:
-                        raise UnsupportedOnDevice(f"numeric aggregate over {col.kind} column")
+                enc, block, route = self._encoded_block(table, needed, dict_cols, check_block)
                 with self._stage("encode"):
                     luts = compiler.collect_luts(sel.where, enc)
                     remaps = []
@@ -1080,11 +1362,8 @@ class GpuQueryExecutor(QueryExecutor):
                 aux.update({f"__remap{i}": r for i, r in enumerate(remaps)})
                 aux.update({f"__dremap{i}": r for i, r in enumerate(dremaps)})
                 with self._stage("transfer"):
-                    dev, nbytes = _transfer(
-                        enc, self.device, aux, self._device_ones(enc.block_rows)
-                    )
-                self.route_stats["device_cold"] += 1
-                self.route_stats["h2d_bytes"] += nbytes
+                    dev = self._attach(block, enc, aux)
+                self._count(route, 1)
                 dev_luts = [
                     dev[f"__lut{i}"] if isinstance(l, np.ndarray) else l for i, l in enumerate(luts)
                 ]
@@ -1101,7 +1380,7 @@ class GpuQueryExecutor(QueryExecutor):
             except UnsupportedOnDevice as e:
                 logger.debug("batch on CPU (%s)", e)
                 self.route_stats["cpu_fallback"] += 1
-                t = self._bounds_filter(table)
+                t = self._bounds_filter(self._materialize(table))
                 agg.update(t, self._where_mask(t))
 
         with self._stage("finalize"):
@@ -1118,8 +1397,9 @@ class GpuQueryExecutor(QueryExecutor):
 
     def _blocks(self, tables: Iterator[pa.Table]) -> Iterator[pa.Table]:
         """Coalesce small scan tables into larger device blocks (fewer
-        launches per row); a table carrying a source id (one Parquet file)
-        stays a block of its own, and oversized tables split."""
+        launches per row); a table carrying a source id (one Parquet file,
+        or the zero-column stub the scan yields for a cached one) stays a
+        block of its own, and oversized tables split."""
         target_rows = max(1 << 16, self.options.device_block_rows)
         buf: list[pa.Table] = []
         rows = 0

@@ -14,9 +14,14 @@ Counterpart of `parseable_tpu/query/provider.py` (`StreamScan`, :487):
   object store. Lake tables yield unfiltered, stamped with a source id; the
   engines apply the row-level time filter themselves.
 
-The hot tier, device-resident stubs, the cluster fan-in and the shared scan
-scheduler are later slices; a small in-order read-ahead overlaps Parquet
-decode with the engine.
+With `use_hot_stubs` (GPU aggregates), a lake file whose block the device
+hot set holds, or the encoded-block cache can serve, is not read: the scan
+yields a zero-column stub (`query/stubs.py`) before any Parquet
+read, publishes those sources in manifest order (`prefetchable`) for the
+executor's prefetcher, and re-reads a source on demand (`read_source`).
+The hot tier on disk, the cluster fan-in and the shared scan scheduler are
+later slices; a small in-order read-ahead overlaps Parquet decode with the
+engine.
 """
 
 from __future__ import annotations
@@ -37,7 +42,10 @@ import pyarrow.parquet as pq
 from parseable_tpu_torch import DEFAULT_TIMESTAMP_KEY, LOCAL_SYNC_INTERVAL
 from parseable_tpu_torch.catalog import ManifestFile, Snapshot
 from parseable_tpu_torch.core import Parseable
+from parseable_tpu_torch.ops.enccache import get_enccache
+from parseable_tpu_torch.ops.hotset import get_hotset
 from parseable_tpu_torch.query.planner import LogicalPlan, prune_file
+from parseable_tpu_torch.query.stubs import SOURCE_ID_META, dict_group_columns, hot_key, make_stub
 
 logger = logging.getLogger(__name__)
 
@@ -62,9 +70,17 @@ class ScanStats:
 class StreamScan:
     """Materialize a stream's Parquet sources for one query."""
 
-    def __init__(self, parseable: Parseable, plan: LogicalPlan):
+    def __init__(self, parseable: Parseable, plan: LogicalPlan, use_hot_stubs: bool = False):
         self.p = parseable
         self.plan = plan
+        # device-resident or enccache-servable blocks skip the Parquet read
+        # entirely: the scan yields a stub the GPU executor resolves
+        self.use_hot_stubs = use_hot_stubs
+        self._sources: dict[bytes, ManifestFile] = {}
+        # ordered source ids the scan stubbed: the GPU executor's prefetcher
+        # walks this list to ship block i+1 while block i aggregates.
+        # Complete before the first stub is yielded
+        self.prefetchable: list[bytes] = []
         self._manifest_files: list[ManifestFile] | None = None
         # read-ahead workers update the stats beside the consumer thread
         self.stats = ScanStats()  # guarded-by: self._stats_lock
@@ -169,7 +185,7 @@ class StreamScan:
     @staticmethod
     def _stamp(table: pa.Table, source_id: bytes) -> pa.Table:
         meta = dict(table.schema.metadata or {})
-        meta[b"ptpu_source_id"] = source_id
+        meta[SOURCE_ID_META] = source_id
         return table.replace_schema_metadata(meta)
 
     def staging_tables(self) -> Iterator[pa.Table]:
@@ -232,21 +248,51 @@ class StreamScan:
 
     def tables(self) -> Iterator[pa.Table]:
         """The staging window's tables (row-filtered to the time range, no
-        source id), then every pruned lake source, in manifest order, decoded
-        READ_AHEAD files ahead of the consumer. Each lake table carries a
-        source id (path, size, rows), so a rewritten object at the same path
-        is a new source."""
+        source id), then the stubs of cached lake sources, then every other
+        pruned lake source, in manifest order, decoded READ_AHEAD files
+        ahead of the consumer. Each lake table carries a source id (path,
+        size, rows), so a rewritten object at the same path is a new
+        source."""
         if self._within_staging_window():
             for t in self.staging_tables():
                 t = self._apply_time_filter(t)
                 if t.num_rows:
                     yield t
-        files = self.manifest_files()
+        hotset = enccache = None
+        if self.use_hot_stubs:
+            hotset = get_hotset()
+            enccache = get_enccache(self.p.options)
+            needed = self.plan.needed_columns
+            dict_cols = dict_group_columns(self.plan.select)
+        to_fetch: list[tuple[ManifestFile, bytes]] = []
+        stubs: list[tuple[bytes, int]] = []
+        for f in self.manifest_files():
+            source_id = f"{f.file_path}|{f.file_size}|{f.num_rows}".encode()
+            self._sources[source_id] = f
+            if hotset is not None:
+                entry = hotset.get(hot_key(source_id, needed, dict_cols))
+                if entry is not None:
+                    stubs.append((source_id, entry.meta.num_rows))
+                    continue
+                # the encoded-block disk cache: the executor loads
+                # device-ready columns, so the Parquet read is skipped
+                if enccache is not None and enccache.can_serve(source_id, needed, dict_cols):
+                    stubs.append((source_id, f.num_rows))
+                    continue
+            to_fetch.append((f, source_id))
+        # publish the ordered stub list BEFORE the first stub yield (hot-now
+        # entries too: under eviction pressure they may be gone by the time
+        # the engine gets there, and the prefetcher skips what is resident)
+        self.prefetchable = [sid for sid, _ in stubs]
+        for source_id, rows in stubs:
+            with self._stats_lock:
+                self.stats.rows_scanned += rows
+            yield make_stub(source_id, rows)
         with ThreadPoolExecutor(max_workers=READ_AHEAD, thread_name_prefix="scan") as pool:
             pending: deque = deque()
             try:
-                for f in files:
-                    pending.append((f, pool.submit(self._read_parquet, f)))
+                for f, source_id in to_fetch:
+                    pending.append((source_id, pool.submit(self._read_parquet, f)))
                     if len(pending) > READ_AHEAD:
                         yield from self._emit(*pending.popleft())
                 while pending:
@@ -255,7 +301,17 @@ class StreamScan:
                 for _, fut in pending:
                     fut.cancel()
 
-    def _emit(self, f: ManifestFile, fut) -> Iterator[pa.Table]:
+    def read_source(self, source_id: bytes) -> pa.Table:
+        """Re-read a stubbed source (hot-set eviction race / CPU fallback)."""
+        f = self._sources.get(source_id)
+        if f is None:
+            raise KeyError(f"unknown scan source {source_id!r}")
+        t = self._read_parquet(f)
+        if t is None:
+            raise OSError(f"failed to re-read {f.file_path}")
+        return self._stamp(t, source_id)
+
+    def _emit(self, source_id: bytes, fut) -> Iterator[pa.Table]:
         t = fut.result()
         if t is not None and t.num_rows:
-            yield self._stamp(t, f"{f.file_path}|{f.file_size}|{f.num_rows}".encode())
+            yield self._stamp(t, source_id)

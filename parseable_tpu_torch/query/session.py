@@ -7,7 +7,9 @@ trimmed to single-stream SELECTs. Engines:
   `device` (default `cuda`). There is no probe-and-fall-back: a GPU query
   on a machine without a working card raises `DeviceUnavailable`.
   `device="cpu"` runs the same executor with the kernels' plain versions,
-  which is how the tests drive it.
+  which is how the tests drive it. Aggregates scan with hot stubs
+  (`StreamScan.use_hot_stubs`), and `stats.stages.hotset` reports the
+  device hot set after the query.
 - "cpu": the pyarrow `QueryExecutor`.
 
 EXPLAIN, CTEs, UNION, joins and subqueries are later slices and raise
@@ -26,6 +28,7 @@ import torch
 
 from parseable_tpu_torch import DEFAULT_TIMESTAMP_KEY
 from parseable_tpu_torch.core import Parseable
+from parseable_tpu_torch.ops.hotset import get_hotset
 from parseable_tpu_torch.query import sql as S
 from parseable_tpu_torch.query.executor import QueryExecutor
 from parseable_tpu_torch.query.planner import LogicalPlan, TimeBounds, plan as build_plan
@@ -112,7 +115,9 @@ class QuerySession:
         ):
             raise QueryError("EXPLAIN, CTEs, UNION, joins and subqueries are not ported yet")
         lp = self._plan(select, start_time, end_time, t0)
-        scan = StreamScan(self.p, lp)
+        # GPU aggregates skip the Parquet read of blocks the device hot set
+        # or the encoded-block cache holds
+        scan = StreamScan(self.p, lp, use_hot_stubs=self.engine == "gpu" and lp.is_aggregate)
         table, stats = self._execute(lp, scan)
         elapsed = _time.monotonic() - t0
         stats.update(
@@ -168,6 +173,10 @@ class QuerySession:
                 lp.needed_columns.discard(DEFAULT_TIMESTAMP_KEY)
             self._set_scan_time_hint(lp, scan)
             executor: QueryExecutor = GpuQueryExecutor(lp, self.p.options, device=self.device)
+            executor.source_loader = scan.read_source
+            # the scan's ordered stub list drives query-aware prefetch:
+            # block i+1 ships from the enccache while block i aggregates
+            executor.prefetch_scan = scan
         else:
             executor = QueryExecutor(lp)
         timer = _TimedIter(scan.tables())
@@ -183,7 +192,18 @@ class QuerySession:
         if routes is not None:
             stats["device_routes"] = dict(routes)
             stages.update({f"{k}_ms": round(v, 3) for k, v in executor.stage_ms.items()})
+            stages["hotset"] = self._hotset_stage(routes)
         return table, stats
+
+    @staticmethod
+    def _hotset_stage(routes: dict) -> dict:
+        """stats.stages.hotset: the hot set's state (budget, residency,
+        evictions, rejections) plus this query's prefetch counters."""
+        snap = get_hotset().stats_snapshot()
+        for k in ("prefetch_issued", "prefetch_hits", "prefetch_wasted", "prefetch_errors"):
+            if k in routes:
+                snap[k] = routes[k]
+        return snap
 
     @staticmethod
     def _set_scan_time_hint(lp: LogicalPlan, scan: StreamScan) -> None:

@@ -46,6 +46,7 @@ from parseable_tpu_torch.config import Options, StorageOptions, parse_cli
 from parseable_tpu_torch.core import Parseable, StreamError, StreamNotFound, validate_stream_name
 from parseable_tpu_torch.event.format import LogSource
 from parseable_tpu_torch.event.json_format import EventError
+from parseable_tpu_torch.ops.enccache import shutdown_enccache
 from parseable_tpu_torch.query.session import QueryError, QuerySession
 from parseable_tpu_torch.query.sql import SqlError
 from parseable_tpu_torch.rbac import Action, RbacStore, bootstrap_admin
@@ -123,7 +124,8 @@ class ServerState:
 
     def stop(self) -> None:
         """Stop the loops (an in-flight tick finishes), then flush, convert
-        and upload everything staged (`Parseable.shutdown`). Idempotent."""
+        and upload everything staged (`Parseable.shutdown`), and stop the
+        encoded-block cache's writer. Idempotent."""
         if self.shutting_down:
             return
         self.shutting_down = True
@@ -134,6 +136,9 @@ class ServerState:
         self.workers.shutdown(wait=True)
         self.query_workers.shutdown(wait=True)
         self.p.shutdown()
+        # the encoded-block cache's write-behind thread: every thread the
+        # server starts has a deterministic stop
+        shutdown_enccache()
 
 
 STATE = web.AppKey("state", ServerState)

@@ -358,12 +358,17 @@ class Stream:
         """Salvage `.part.arrows` left by a crash (streams.rs:1421-1516).
 
         A part file with a valid IPC footer was fully written minus rename;
-        anything unreadable is discarded. Stale `.part.parquet` is removed.
+        anything unreadable is discarded. Stale `.part.parquet` and
+        `.enrich` links are removed.
         """
         if not self.data_path.is_dir():
             return
         for p in list(self.data_path.iterdir()):
             if p.name.endswith(".part.parquet"):
+                p.unlink(missing_ok=True)
+            elif p.name.endswith(".enrich"):
+                # hardlink owned by a previous run's enrichment queue; the
+                # data itself was uploaded (links are made post-commit)
                 p.unlink(missing_ok=True)
             elif p.name.endswith("." + PART_FILE_EXTENSION):
                 try:

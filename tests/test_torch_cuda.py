@@ -100,9 +100,10 @@ def _table(seed: int, n: int):
         "WHERE message LIKE '%error%' AND status >= 400 GROUP BY host",
     ],
 )
-def test_cuda_executor_matches_plain_path(cuda, sql):
+def test_cuda_executor_matches_plain_path(cuda, sql, monkeypatch):
     """The executor on the card against the same executor on the CPU (the
     kernels' plain versions): the whole fold, not only the kernels."""
+    from parseable_tpu_torch.ops.hotset import get_hotset
     from parseable_tpu_torch.query.executor_cuda import SOURCE_ID_META, GpuQueryExecutor
     from parseable_tpu_torch.query.planner import plan
     from parseable_tpu_torch.query.sql import parse_sql
@@ -111,6 +112,9 @@ def test_cuda_executor_matches_plain_path(cuda, sql):
         _table(s, 20_000).replace_schema_metadata({SOURCE_ID_META: str(s).encode()})
         for s in (1, 2)
     ]
+    # made-up source ids: an empty hot set, and no encoded-block cache
+    get_hotset().clear()
+    monkeypatch.setenv("P_TPU_ENC_CACHE", "0")
     before = dict(G.LAUNCHES)
     on_card = GpuQueryExecutor(plan(parse_sql(sql)), device=cuda)
     got = on_card.execute(iter(tables)).to_pylist()
@@ -570,7 +574,7 @@ def test_cuda_stats_refuse_a_regime_that_does_not_fit(cuda, regime, q, g):
     ],
     ids=["stddev-var-percentiles", "distinct-hll-percentile"],
 )
-def test_cuda_executor_statistics_match_plain_path(cuda, sql):
+def test_cuda_executor_statistics_match_plain_path(cuda, sql, monkeypatch):
     """The statistics' whole fold on the card against the same executor on
     the CPU: every new kernel launched, nothing on the CPU engine. stddev
     and var rel 2e-4 (f32 atomics in another order); percentiles rel 1e-3
@@ -578,6 +582,7 @@ def test_cuda_executor_statistics_match_plain_path(cuda, sql):
     bin edge into neighbouring bins, which moves the interpolation by a
     fraction of one bin over its count); counts and distincts exact."""
     from parseable_tpu_torch.ops import stats_cuda as SC
+    from parseable_tpu_torch.ops.hotset import get_hotset
     from parseable_tpu_torch.query.executor_cuda import SOURCE_ID_META, GpuQueryExecutor
     from parseable_tpu_torch.query.planner import plan
     from parseable_tpu_torch.query.sql import parse_sql
@@ -586,6 +591,9 @@ def test_cuda_executor_statistics_match_plain_path(cuda, sql):
         _table(s, 20_000).replace_schema_metadata({SOURCE_ID_META: str(s).encode()})
         for s in (1, 2)
     ]
+    # made-up source ids: an empty hot set, and no encoded-block cache
+    get_hotset().clear()
+    monkeypatch.setenv("P_TPU_ENC_CACHE", "0")
     before = dict(SC.LAUNCHES)
     on_card = GpuQueryExecutor(plan(parse_sql(sql)), device=cuda)
     got = on_card.execute(iter(tables)).to_pylist()
@@ -605,3 +613,57 @@ def test_cuda_executor_statistics_match_plain_path(cuda, sql):
                 assert a[k] == pytest.approx(b[k], rel=1e-3)
             else:
                 assert a[k] == b[k], (k, a[k], b[k])
+
+
+@pytest.mark.parametrize("budget_blocks", [None, 2.5], ids=["states", "pressure"])
+def test_cuda_block_tiers_match_the_cpu_engine(cuda, tmp_path, monkeypatch, budget_blocks):
+    """A lake on the card through the block tiers: cold, disk-warm and
+    device-warm (hot set unbounded), or twice under a hot-set budget of 2.5
+    blocks, where blocks are evicted and the prefetcher ships on its own
+    CUDA stream. Every answer equals the CPU engine's (counts exact, sums
+    rel 2e-4); no prefetch ship fails."""
+    from datetime import UTC, datetime
+
+    from parseable_tpu_torch.config import Options, StorageOptions
+    from parseable_tpu_torch.core import Parseable
+    from parseable_tpu_torch.ops.enccache import get_enccache
+    from parseable_tpu_torch.ops.hotset import get_hotset
+    from parseable_tpu_torch.query.session import QuerySession
+
+    p = Parseable(Options(local_staging_path=tmp_path / "staging"),
+                  StorageOptions(root=tmp_path / "data"))
+    try:
+        stream = p.create_stream_if_not_exists("t")
+        for i in range(6):
+            stream.write_parquet(_table(30 + i, 50_000), datetime(2024, 5, 1, 10, i, tzinfo=UTC))
+        p.sync_all_streams()
+        sql = ("SELECT date_bin(interval '1 minute', p_timestamp) AS t, status, count(*) AS c, "
+               "sum(lat) AS s FROM t GROUP BY t, status")
+        want = QuerySession(p, engine="cpu").query(sql).table.to_pylist()
+        hs = get_hotset()
+        hs.clear()
+        runs = [QuerySession(p, engine="gpu", device=cuda).query(sql)]  # every block resident
+        if budget_blocks is None:
+            get_enccache(p.options).wait_idle()
+            hs.clear()
+            runs.append(QuerySession(p, engine="gpu", device=cuda).query(sql))  # disk-warm
+            runs.append(QuerySession(p, engine="gpu", device=cuda).query(sql))  # device-warm
+            assert runs[-1].stats["device_routes"]["device_warm"] == 6
+        else:
+            block = max(slot.entry.nbytes for slot in hs._entries.values())
+            monkeypatch.setenv("P_TPU_HOT_BYTES", str(int(budget_blocks * block)))
+            runs += [QuerySession(p, engine="gpu", device=cuda).query(sql) for _ in range(2)]
+            hot = runs[-1].stats["stages"]["hotset"]
+            assert hot["evictions"] > 0, hot
+            assert sum(r.stats["device_routes"].get("prefetch_hits", 0) for r in runs) > 0
+        key = lambda r: (str(r["t"]), r["status"])  # noqa: E731
+        for res in runs:
+            routes = res.stats["device_routes"]
+            assert routes["cpu_fallback"] == 0 and routes.get("prefetch_errors", 0) == 0, routes
+            got = sorted(res.table.to_pylist(), key=key)
+            assert [(key(r), r["c"]) for r in got] == [(key(r), r["c"]) for r in sorted(want, key=key)]
+            for a, b in zip(got, sorted(want, key=key)):
+                assert a["s"] == pytest.approx(b["s"], rel=2e-4, abs=1e-6)
+    finally:
+        p.shutdown()
+        get_hotset().clear()

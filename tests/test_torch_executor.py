@@ -32,6 +32,7 @@ from parseable_tpu.query.executor import QueryExecutor as JaxCpuExecutor
 from parseable_tpu.query.executor_tpu import TpuQueryExecutor
 from parseable_tpu.query.planner import plan as jax_plan
 from parseable_tpu.query.sql import parse_sql as jax_parse
+from parseable_tpu_torch.ops.hotset import get_hotset
 from parseable_tpu_torch.query import executor_cuda as X
 from parseable_tpu_torch.query.executor import QueryExecutor as PortCpuExecutor
 from parseable_tpu_torch.query.planner import plan as port_plan
@@ -71,13 +72,19 @@ def tables() -> list[pa.Table]:
 
 def port_gpu(sql: str, tables) -> tuple[list[dict], dict]:
     """The port's GPU path; each table carries a source id, as scanned
-    Parquet does, so each stays a device block of its own."""
+    Parquet does, so each stays a device block of its own. The ids are
+    made up (t0, t1, ...) and name other tables in other calls, so the
+    process-wide hot set starts empty for each call and the encoded-block
+    cache is off."""
+    get_hotset().clear()
     blocks = [
         t.replace_schema_metadata({X.SOURCE_ID_META: f"t{i}".encode()})
         for i, t in enumerate(tables)
     ]
-    ex = X.GpuQueryExecutor(port_plan(port_parse(sql)), device="cpu")
-    return ex.execute(iter(blocks)).to_pylist(), ex.route_stats
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("P_TPU_ENC_CACHE", "0")
+        ex = X.GpuQueryExecutor(port_plan(port_parse(sql)), device="cpu")
+        return ex.execute(iter(blocks)).to_pylist(), ex.route_stats
 
 
 def jax_tpu(sql: str, tables) -> list[dict]:

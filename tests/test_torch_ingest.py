@@ -558,3 +558,42 @@ def test_cpu_engine_sketches_match_the_jax_cpu_engine(n, jax_native_hash):
         "FROM t GROUP BY g0"
     )
     assert port_cpu(sql, tables) == jax_cpu(sql, tables)
+
+
+# the two dashboard shapes of chip_smoke.py's phase 7, over `stats_table`
+# (10-minute bins: a percentile's histogram bound holds for groups of some
+# hundred values, as a minute of chip_smoke.py's lake holds)
+DASHBOARDS = {
+    "stats_status": (
+        "SELECT status AS g0, count(*) AS c0, stddev(lat) AS s0, var(bytes) AS s1, "
+        "approx_percentile_cont(x, 0.99) AS p0, approx_median(bytes) AS p1 FROM t "
+        "WHERE p_timestamp >= '2024-05-01T10:30:00Z' GROUP BY g0"
+    ),
+    "stats_minute": (
+        "SELECT date_bin(interval '10 minutes', p_timestamp) AS g0, status AS g1, "
+        "count(distinct path) AS d0, approx_distinct(host) AS d1, "
+        "approx_percentile_cont(lat, 0.5) AS p0 FROM t WHERE status >= 400 GROUP BY g0, g1"
+    ),
+}
+
+
+@pytest.mark.parametrize("name", list(DASHBOARDS))
+def test_dashboard_cache_states_match_both_cpu_engines(name, tables, tmp_path, jax_native_hash):
+    """The dashboard shapes over a lake the port wrote, cold, disk-warm and
+    device-warm (tests/test_torch_tiering.py's cache states), against the
+    JAX CPU engine and the port's CPU engine, and the JAX "tpu" engine."""
+    from tests.test_torch_tiering import cache_states, write_lake
+
+    sql = DASHBOARDS[name]
+    p = write_lake(tmp_path, tables)
+    try:
+        ref, dev = jax_cpu(sql, tables), jax_tpu(sql, tables)
+        port = QuerySession(p, engine="cpu").query(sql).table.to_pylist()
+        assert_stats(ref, port, sql, 1)
+        for res in cache_states(p, sql).values():
+            got = res.table.to_pylist()
+            assert_stats(ref, got, sql, 1)
+            assert_stats(port, got, sql, 1)
+            assert_stats(dev, got, sql, 0)
+    finally:
+        p.shutdown()

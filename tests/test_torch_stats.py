@@ -54,6 +54,7 @@ from parseable_tpu_torch.event.format import xxh64
 from parseable_tpu_torch.ops import hll_sketch as PH
 from parseable_tpu_torch.ops import kernels as PK
 from parseable_tpu_torch.ops import stats_cuda as SC
+from parseable_tpu_torch.ops.hotset import get_hotset
 from parseable_tpu_torch.query import executor_cuda as X
 from parseable_tpu_torch.query import sketch as PS
 from parseable_tpu_torch.query.executor import QueryExecutor as PortCpuExecutor
@@ -280,12 +281,20 @@ def tables() -> list[pa.Table]:
 
 
 def port_gpu(sql: str, tables) -> tuple[list[dict], dict]:
+    """The port's GPU path; each table carries a source id, as scanned
+    Parquet does, so each stays a device block of its own. The ids are
+    made up (t0, t1, ...) and name other tables in other calls, so the
+    process-wide hot set starts empty for each call and the encoded-block
+    cache is off."""
+    get_hotset().clear()
     blocks = [
         t.replace_schema_metadata({X.SOURCE_ID_META: f"t{i}".encode()})
         for i, t in enumerate(tables)
     ]
-    ex = X.GpuQueryExecutor(port_plan(port_parse(sql)), device="cpu")
-    return ex.execute(iter(blocks)).to_pylist(), ex.route_stats
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("P_TPU_ENC_CACHE", "0")
+        ex = X.GpuQueryExecutor(port_plan(port_parse(sql)), device="cpu")
+        return ex.execute(iter(blocks)).to_pylist(), ex.route_stats
 
 
 def jax_tpu(sql: str, tables) -> list[dict]:
