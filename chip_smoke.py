@@ -3,31 +3,34 @@
 
     python3 chip_smoke.py [--seed 42]
 
-Builds the hand-written group-by kernels from `parseable_tpu_torch/csrc/`,
-holds every regime of each against its plain PyTorch version on the card
-(phase 2; with the regimes side by side at the shapes where the rules
-switch), writes an access-log lake of 2^23 rows (8 one-minute Parquet
-files of 2^20 rows, the shape of `bench.py`'s "default" profile) through the
-port's own sync path, which also seeds the encoded-block cache (phase 3),
-and answers four GROUP BY queries on the port's "cpu" engine and on its
-"gpu" engine in four cache states: cold (device hot set and encoded-block
-cache empty), page-cache warm (no encoded-block cache: Parquet read and
-encode again), disk-warm (the encoded-block cache serves) and device-warm
-(the hot set serves), with a profiled page-cache-warm and device-warm run
-each whose device busy time is broken down into copies, the hand kernels
-and other kernels (phase 4). Phase 7 does the same with two dashboard
-queries with stddev, var, approximate percentiles, count(distinct) and
-approx_distinct, through the statistics kernels K5-K7
-(`parseable_tpu_torch/csrc/stats.cu`). Phase 8 runs the groupby query
-twice under a hot-set budget below its blocks: evictions, and the
-prefetcher shipping blocks on its own CUDA stream. Phase 5
-checks and times each kernel on the inputs the main path gave it (one block
-per shape, recorded in phases 4 and 7) and kernels A and B also on uniform
-inputs of the same shape; K5-K7 there in the regime their rule picks and
-in the whole-copy rule's (a whole copy a CTA), timed in turns, K7 also
-with a NaN and an inf value that must stay in their own groups. Phase 6
-runs the HTTP server. Any failed check raises, so the script exits
-non-zero; it needs one CUDA card and has no CPU path.
+Builds the hand-written kernels from `parseable_tpu_torch/csrc/`, holds
+every regime of each against its plain PyTorch version on the card (phase
+2; with the regimes side by side at the shapes where the rules switch, and
+the fold's front half, K3, bit for bit on programs that use every opcode
+over NaN, NULL, wrapping times and unaligned columns), writes an access-
+log lake of 2^23 rows (8 one-minute Parquet files of 2^20 rows, the shape
+of `bench.py`'s "default" profile) through the port's own sync path, which
+also seeds the encoded-block cache (phase 3), and answers four GROUP BY
+queries and two log-browsing selects (their WHERE mask on K3a) on the
+port's "cpu" engine and on its "gpu" engine in four cache states: cold
+(device hot set and encoded-block cache empty), page-cache warm (no
+encoded-block cache: Parquet read and encode again), disk-warm (the
+encoded-block cache serves) and device-warm (the hot set serves), with a
+profiled page-cache-warm and device-warm run each whose device busy time
+is broken down into copies, the hand kernels and other kernels (phase 4).
+Phase 7 does the same with two dashboard queries with stddev, var,
+approximate percentiles, count(distinct) and approx_distinct, through the
+statistics kernels K5-K7 (`parseable_tpu_torch/csrc/stats.cu`). Phase 8
+runs the groupby query twice under a hot-set budget below its blocks:
+evictions, and the prefetcher shipping blocks on its own CUDA stream.
+Phase 5 checks and times each kernel on the inputs the main path gave it
+(one block per shape, recorded in phases 4 and 7; K3 on each query's own
+block) and kernels A and B also on uniform inputs of the same shape; K5-K7
+there in the regime their rule picks and in the whole-copy rule's (a whole
+copy a CTA), timed in turns, K7 also with a NaN and an inf value that must
+stay in their own groups. Phase 6 runs the HTTP server. Any failed check
+raises, so the script exits non-zero; it needs one CUDA card and has no
+CPU path.
 
 Kernel times are device times: REPS calls enqueued back to back between two
 CUDA events behind a device spin (`DeviceTimer`), L2-cold (rotating over
@@ -89,6 +92,23 @@ QUERIES = {
     "minmax": (
         "SELECT host, min(latency_ms) AS mn, max(bytes) AS mx FROM {stream} "
         "WHERE status >= 400 AND p_timestamp >= '2024-05-01T00:02:00Z' GROUP BY host"
+    ),
+}
+# plain SELECTs: the WHERE mask on the card (K3a), rows filtered on the host;
+# (query, the ORDER BY column whose order the answer must keep, or None)
+SELECT_QUERIES = {
+    # the console's log view
+    "select_browse": (
+        "SELECT p_timestamp, host, method, path, status, message FROM {stream} "
+        "WHERE status >= 500 AND message LIKE '%error%' AND p_timestamp >= '2024-05-01T00:02:00Z' "
+        "ORDER BY p_timestamp DESC LIMIT 1000",
+        "p_timestamp",
+    ),
+    # no LIMIT: every mask bit reaches the answer
+    "select_filter": (
+        "SELECT host, path, status, latency_ms FROM {stream} WHERE host IN ('10.0.0.1', "
+        "'10.0.1.2') AND NOT (path LIKE '%resource1%') AND latency_ms > 250",
+        None,
     ),
 }
 BASE = datetime(2024, 5, 1, 0, 0, tzinfo=UTC)
@@ -431,6 +451,289 @@ def rule_sweep(torch, G, timer, gen) -> None:
             f"{G.minmax_decode(2, g)}, us {json.dumps(us)}")
 
 
+# --------------------------------------------------------------------- K3
+
+K3_KERNELS = ("mask_ids", "stack_operands")
+
+
+def k3_block(torch, np, n: int, offset: int, rng) -> dict:
+    """Every column kind of a K3 program on the card, each a view `offset`
+    elements into a larger buffer (aligned to its element size only): int8
+    codes over the whole signed range, int16 and int32 codes, f32 values
+    with NaN, +-inf, -0.0 and NULLs, int32 times out to +-2^31 (negative
+    ones among them) with NULLs, and a padding mask."""
+    f = (rng.standard_normal(n) * 100).astype(np.float32)
+    u = rng.random(n)
+    f[u < 0.05] = np.nan
+    f[(u >= 0.05) & (u < 0.07)] = np.inf
+    f[(u >= 0.07) & (u < 0.09)] = -np.inf
+    f[(u >= 0.09) & (u < 0.12)] = -0.0
+    t = rng.integers(-(2**31), 2**31, n, dtype=np.int64).astype(np.int32)
+    t[: n // 2] = rng.integers(-200_000, 200_000, n // 2)
+    t[:4] = [2**31 - 1, -(2**31), -1, 0]
+    cols = {
+        "c8": rng.integers(-128, 128, n).astype(np.int8),
+        "c16": rng.integers(0, 1000, n).astype(np.int16),
+        "c32": rng.integers(0, 5000, n).astype(np.int32),
+        "f": f, "t": t,
+        "f__valid": rng.random(n) < 0.9, "t__valid": rng.random(n) < 0.95,
+        "c16__valid": rng.random(n) < 0.8, "__rowmask": np.arange(n) < n - 37,
+    }
+    out = {}
+    for k, a in cols.items():
+        buf = np.zeros(len(a) + offset, a.dtype)
+        buf[offset:] = a
+        out[k] = torch.from_numpy(buf).cuda()[offset:]
+    return out
+
+
+def k3_programs(F, np, rng) -> list:
+    """(name, Program) pairs over `k3_block`'s columns that use every opcode
+    and operand row: each leaf alone under each comparison (NaN, -0.0 and
+    +-inf literals among them), the connectives over NULLs, then the keys
+    (dictionary remaps with their 2^30 sentinel, time bins with a wrapping
+    shift and a negative offset) and every kind of operand row."""
+    luts = {"c8": rng.random(256) < 0.5, "c16": rng.random(1024) < 0.3,
+            "c32": rng.random(8192) < 0.5}
+    out = []
+
+    def program(name, build):
+        prog = F.Program()
+        slot = {c: prog.slot(c, f"{c}__valid" if c in ("f", "t", "c16") else None)
+                for c in ("c8", "c16", "c32", "f", "t")}
+        build(prog, slot)
+        out.append((name, prog))
+
+    def connectives(p, s):  # NOT ((f > 0 OR c16) AND NOT t < 0) OR (f IS NULL AND false)
+        p.cmp_f32(s["f"], ">", 0.0)
+        p.lut(s["c16"], luts["c16"])
+        p.or_()
+        p.cmp_i32(s["t"], "<", 0)
+        p.not_()
+        p.and_()
+        p.not_()
+        p.is_null(s["f"])
+        p.const(False)
+        p.and_()
+        p.or_()
+        p.is_null(p.slot(None, "__rowmask"), negated=True)
+        p.and_()
+
+    def keys_and_rows(p, s):
+        connectives(p, s)
+        remap8 = rng.integers(0, 70, 256).astype(np.int32)
+        remap8[::9] = 2**30
+        p.key_dict(s["c8"], remap8, 64, 1)
+        p.key_time(s["t"], 2**30 - 5, 7, -3, 16, 64)
+        p.key_time(s["t"], 0, 60_000, 2, 8, 1024)
+        p.key_dict(s["c16"], rng.integers(0, 3, 1024).astype(np.int32), 4, 8192)
+        p.row(F.ROW_MASK)
+        for nan in (False, True):
+            p.row(F.ROW_LIVE, s["f"], nan_aware=nan)
+            p.row(F.ROW_LIVE, s["f"], nan_aware=nan, bool_out=True)
+        p.row(F.ROW_MASKED, s["f"])
+        p.row(F.ROW_VALUE, s["f"])
+        p.row(F.ROW_LIVE, s["c16"])
+        p.row(F.ROW_LIVE, s["c32"], bool_out=True)
+
+    for c in ("c8", "c16", "c32"):
+        program(f"lut {c}", lambda p, s, c=c: p.lut(s[c], luts[c]))
+    for op in F.CMP:
+        for v in (0.0, -0.0, 1.5, float("nan"), float("inf"), -float("inf")):
+            program(f"f32 {op} {v}", lambda p, s, op=op, v=v: p.cmp_f32(s["f"], op, v))
+        for v in (-5, 0, 2**31 - 2, -(2**31) + 2):
+            program(f"i32 {op} {v}", lambda p, s, op=op, v=v: p.cmp_i32(s["t"], op, v))
+    items = [1.5, -0.0, float("inf"), float("nan")]
+    for neg in (False, True):
+        program(f"in {neg}", lambda p, s, neg=neg: p.in_f32(s["f"], items, neg))
+        program(f"null {neg}", lambda p, s, neg=neg: p.is_null(s["f"], neg))
+        program(f"const {neg}", lambda p, s, neg=neg: p.const(neg))
+    program("connectives", connectives)
+    program("keys and rows", keys_and_rows)
+    return out
+
+
+def k3_inputs(torch, prog, block: dict, n: int) -> tuple:
+    """K3a's arguments for `prog` over `block`: (words, slots, n, with_ids)."""
+    words = torch.from_numpy(prog.pack()).cuda()
+    slots = [(block[v] if v else None, block[m] if m else None) for v, m in prog.slots]
+    return words, slots, n, True
+
+
+def clone_args(data: tuple) -> tuple:
+    """A K3 call's arguments with every tensor cloned (slots included)."""
+
+    def one(x):
+        if isinstance(x, list):
+            return [tuple(one(t) for t in slot) for slot in x]
+        return x.clone() if hasattr(x, "clone") else x
+
+    return tuple(one(x) for x in data)
+
+
+def k3_check(torch, F, kind: str, data: tuple, what: str) -> float:
+    """A K3 kernel against its plain version on the same inputs, bit for
+    bit (NaN payloads included); returns the largest difference (0.0)."""
+    if kind == "mask_ids":
+        words, slots, n, with_ids = data
+        mask, ids = F.mask_ids(words, slots, n, with_ids=with_ids)
+        pmask, pids = F.mask_ids_plain(words, slots, n, with_ids)
+        check(torch.equal(mask, pmask), f"K3a mask not exact: {what}")
+        check(ids is None or torch.equal(ids, pids), f"K3a ids not exact: {what}")
+        return 0.0
+    words, slots, mask, nf, nb = data
+    frows, brows = F.stack_operands(words, slots, mask, nf, nb)
+    pf, pb = F.stack_operands_plain(words, slots, mask, nf, nb)
+    check(torch.equal(frows.view(torch.int32), pf.view(torch.int32)) and torch.equal(brows, pb),
+          f"K3b rows not exact: {what}")
+    return 0.0
+
+
+def k3_bytes(F, kind: str, data: tuple) -> tuple[float, int]:
+    """(bytes the call must move, operations): each array it reads once
+    (values, validity, LUTs and remaps, the program, the mask) and each
+    output written once; one operation a row and instruction or row op."""
+    words, slots = data[0], data[1]
+    ins, ops, _, _ = F.decode(words.cpu())
+    n = data[2] if kind == "mask_ids" else data[2].shape[0]
+    read: dict[int, int] = {words.data_ptr(): words.numel() * 4}
+
+    def take(t):
+        if t is not None:
+            read[t.data_ptr()] = t.numel() * t.element_size()
+
+    if kind == "mask_ids":
+        for op, slot, a, b, *_ in ins:
+            values, valid = slots[slot] if slots else (None, None)
+            if op in (F.LUT, F.CMP_F32, F.CMP_I32, F.IN_F32, F.NOT_IN_F32, F.KEY_DICT, F.KEY_TIME):
+                take(values)
+            if op in (F.LUT, F.CMP_F32, F.CMP_I32, F.IN_F32, F.NOT_IN_F32, F.IS_NULL, F.NOT_NULL):
+                take(valid)
+        out = n * (1 + (4 if data[3] else 0))
+        return sum(read.values()) + out, n * max(1, len(ins))
+    mask, nf, nb = data[2], data[3], data[4]
+    take(mask)
+    for op, slot, flags, _ in ops:
+        values, valid = slots[slot] if op != F.ROW_MASK else (None, None)
+        if op in (F.ROW_LIVE, F.ROW_MASKED):
+            take(valid)
+        if op in (F.ROW_MASKED, F.ROW_VALUE) or flags & F.NAN_AWARE:
+            take(values)
+    return sum(read.values()) + n * (4 * nf + nb), n * max(1, len(ops))
+
+
+def host_ms(torch, fn, copies: int) -> float:
+    """Host wall per call to completion (a plain version that reads its
+    program back on the host syncs inside, so device events would time its
+    gaps too)."""
+    fn(0)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for k in range(REPS):
+        fn(k % copies)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3 / REPS
+
+
+def k3_case(torch, F, timer, kind: str, data: tuple, inputs: str) -> dict:
+    """A K3 kernel vs its plain version, bit for bit, then timed L2-cold and
+    L2-warm (device time) beside its plain version (host wall) and, for
+    K3b, one torch.cat that builds the same f32 matrix from ready rows."""
+    res = {"inputs": inputs, "regime": None}
+    res["max_abs_err"] = k3_check(torch, F, kind, data, f"{kind} {inputs}")
+    nbytes, ops = k3_bytes(F, kind, data)
+    copies = n_copies(nbytes)
+
+    sets = [data] + [clone_args(data) for _ in range(copies - 1)]
+    if kind == "mask_ids":
+        words, slots, n, with_ids = data
+        call = lambda d: F.mask_ids(d[0], d[1], d[2], with_ids=d[3])  # noqa: E731
+        plain = lambda d: F.mask_ids_plain(*d)  # noqa: E731
+        ins = F.decode(words.cpu())[0]
+        res["shape"] = f"N={n} slots={len(slots)} instr={len(ins)} ids={with_ids}"
+    else:
+        words, slots, mask, nf, nb = data
+        n = mask.shape[0]
+        call = lambda d: F.stack_operands(*d)  # noqa: E731
+        plain = lambda d: F.stack_operands_plain(*d)  # noqa: E731
+        res["shape"] = f"N={n} slots={len(slots)} rows={nf}+{nb}"
+    fns = {"ms": lambda k: call(sets[k])}
+    if kind == "stack_operands" and nf:
+        ready = [[r.clone() for r in plain(d)[0]] for d in sets]
+        fns["library_ms"] = lambda k: torch.cat([r[None] for r in ready[k]])
+    res.update(timed(timer, fns, copies))
+    res.setdefault("library_ms", None)
+    res["plain_ms"] = host_ms(torch, lambda k: plain(sets[k]), copies)
+    res["profiler_ms"], res["profiler_kernels"] = profiled_ms(
+        torch, fns["ms"], (KERNEL_SYMBOLS[kind],))
+    res["sum_ms"] = stream_sum_ms(torch, timer, nbytes)
+    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, ops)
+    res["bytes"] = nbytes
+    res["copies"] = copies
+    return res
+
+
+def k3_hazards(torch, F, timer, seed: int) -> None:
+    """Phase 2: K3a and K3b against their plain versions, bit for bit, on
+    every program of `k3_programs` over 2^20 + 3 rows whose columns sit one
+    element off their buffers' alignment; the keys-and-rows program timed."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = N_BLOCK + 3
+    block = k3_block(torch, np, n, 1, rng)
+    programs = k3_programs(F, np, rng)
+    for name, prog in programs:
+        data = k3_inputs(torch, prog, block, n)
+        k3_check(torch, F, "mask_ids", data, name)
+        if prog.n_frows + prog.n_brows:
+            mask, _ = F.mask_ids(*data[:3])
+            k3_check(torch, F, "stack_operands",
+                     (data[0], data[1], mask, prog.n_frows, prog.n_brows), name)
+    log(f"phase 2 K3 hazards: {len(programs)} programs exact on N={n}, unaligned views")
+    name, prog = programs[-1]
+    data = k3_inputs(torch, prog, block, n)
+    res = k3_case(torch, F, timer, "mask_ids", data, "hazards")
+    log(f"phase 2 mask_ids {json.dumps(res)}")
+    mask, _ = F.mask_ids(*data[:3])
+    res = k3_case(torch, F, timer, "stack_operands",
+                  (data[0], data[1], mask, prog.n_frows, prog.n_brows), "hazards")
+    log(f"phase 2 stack_operands {json.dumps(res)}")
+
+
+class K3Recorder:
+    """Records each query's first K3 calls (its block shape, inputs cloned)
+    while the real wrappers run; `query` names the query being driven."""
+
+    def __init__(self, F):
+        self.F = F
+        self.query = None
+        self.shapes: dict[str, dict] = {k: {} for k in K3_KERNELS}
+        self.inputs: dict[str, dict] = {k: {} for k in K3_KERNELS}
+        self.real = {k: getattr(F, k) for k in K3_KERNELS}
+
+    def _record(self, name, data):
+        key = self.query
+        self.shapes[name][key] = self.shapes[name].get(key, 0) + 1
+        if key not in self.inputs[name]:
+            self.inputs[name][key] = clone_args(data)
+
+    def __enter__(self):
+        def mask_ids(words, slots, n, *, with_ids=True):
+            self._record("mask_ids", (words, slots, n, with_ids))
+            return self.real["mask_ids"](words, slots, n, with_ids=with_ids)
+
+        def stack_operands(words, slots, mask, nf, nb):
+            self._record("stack_operands", (words, slots, mask, nf, nb))
+            return self.real["stack_operands"](words, slots, mask, nf, nb)
+
+        self.F.mask_ids, self.F.stack_operands = mask_ids, stack_operands
+        return self
+
+    def __exit__(self, *exc):
+        self.F.mask_ids, self.F.stack_operands = (self.real[k] for k in K3_KERNELS)
+
+
 # ------------------------------------------------------------------- lake
 
 
@@ -496,6 +799,29 @@ def same_result(name: str, gpu, cpu, rel: dict | None = None) -> None:
                 check(va == vb, f"{name}.{col}: gpu {va!r} vs cpu {vb!r}")
 
 
+def same_select(name: str, gpu, cpu, order_key: str | None) -> None:
+    """A select's rows equal the CPU engine's: as multisets, and in order on
+    `order_key` where the query orders. Rows tied on the order key at the
+    LIMIT's edge may be any of the tied rows (the scan yields blocks in
+    completion order), so there only their number must agree."""
+    import pyarrow.compute as pc
+
+    def by_all(t):
+        return t.sort_by([(c, "ascending") for c in t.column_names])
+
+    check(gpu.column_names == cpu.column_names, f"{name}: columns {gpu.column_names}")
+    check(gpu.num_rows == cpu.num_rows, f"{name}: {gpu.num_rows} rows on gpu vs {cpu.num_rows}")
+    if order_key is None or gpu.num_rows == 0:
+        check(by_all(gpu).equals(by_all(cpu)), f"{name}: rows differ")
+        return
+    keys = gpu[order_key].to_pylist()
+    check(keys == cpu[order_key].to_pylist(), f"{name}: {order_key} order differs")
+    edge = gpu[order_key][gpu.num_rows - 1]
+    inner_g = gpu.filter(pc.not_equal(gpu[order_key], edge))
+    inner_c = cpu.filter(pc.not_equal(cpu[order_key], edge))
+    check(by_all(inner_g).equals(by_all(inner_c)), f"{name}: rows above the edge differ")
+
+
 def build_lake(work: Path, seed: int, minutes: int, rows: int):
     """Phase 3: stage one Parquet file per minute and sync it into the lake
     through the port's own upload and catalog commit."""
@@ -533,7 +859,7 @@ def build_lake(work: Path, seed: int, minutes: int, rows: int):
 KERNEL_SYMBOLS = {
     "additive_groupby": "additive", "minmax_groupby": "minmax",
     "distinct_fold": "distinct_", "pct_histogram": "pct_hist_",
-    "centered_m2": "m2_",
+    "centered_m2": "m2_", "mask_ids": "k3_mask_ids", "stack_operands": "k3_stack_operands",
 }
 
 
@@ -600,11 +926,14 @@ def profiled_query(torch, sess, qname: str, text: str, phase: str, state: str):
 STATES = ("cold", "page-cache warm", "disk-warm", "device-warm")
 
 
-def state_runs(torch, p, qname: str, text: str, phase: str, device, rel=None) -> list:
+def state_runs(torch, p, qname: str, text: str, phase: str, device, rel=None,
+               select: tuple | None = None) -> list:
     """One lake query on the "gpu" engine in the four cache states, one more
     profiled page-cache-warm and device-warm run each (on the card), then
     once on the "cpu" engine. Every GPU run equals the CPU run, stays on the
-    device, and resolves its blocks as its state says. Returns the GPU
+    device, and resolves its blocks as its state says. A select (`select` =
+    (its order column or None,)) reads Parquet in every state, for its
+    projection, and its answer is held by `same_select`. Returns the GPU
     results."""
     import os
 
@@ -670,7 +999,7 @@ def state_runs(torch, p, qname: str, text: str, phase: str, device, rel=None) ->
         else:
             check((r["device_warm"], r["device_cold"]) == (0, blocks),
                   f"{qname} {state}: {blocks} blocks but routes {r}")
-        check((st["bytes_scanned"] > 0) == (state in ("cold", "page-cache warm")),
+        check((st["bytes_scanned"] > 0) == (select is not None or state in ("cold", "page-cache warm")),
               f"{qname} {state}: {st['bytes_scanned']} Parquet bytes read")
         check(r.get("prefetch_errors", 0) == 0, f"{qname} {state}: prefetch errors {r}")
     t = time.perf_counter()
@@ -683,7 +1012,10 @@ def state_runs(torch, p, qname: str, text: str, phase: str, device, rel=None) ->
         routes = res.stats["device_routes"]
         check(routes["cpu_fallback"] == 0, f"{qname}: cpu_fallback {routes}")
         check(res.stats["scan_errors"] == 0, f"{qname}: scan errors")
-        same_result(qname, res.table, cpu.table, rel)
+        if select is None:
+            same_result(qname, res.table, cpu.table, rel)
+        else:
+            same_select(qname, res.table, cpu.table, select[0])
     check(out[0].table.num_rows > 0, f"{qname}: empty result")
     return out
 
@@ -699,21 +1031,21 @@ def log_residency(torch, phase: str, on_card: bool) -> None:
         f"link profile {json.dumps(get_link().snapshot())}")
 
 
-def drive_main_path(p, device=None) -> tuple[dict, dict, dict]:
+def drive_main_path(p, device=None) -> tuple[dict, dict, dict, "K3Recorder"]:
     """Phase 4: every query on the "gpu" engine (on `device`, default the
     card) and the "cpu" engine, cold then warm; the engines must agree, the
-    GPU runs must stay on the device and launch the kernels. Returns the
-    launch counts of the run, the kernel shapes it used with their call
-    counts, and one block's inputs per shape (cloned)."""
+    GPU runs must stay on the device and launch the kernels: the aggregates
+    K3a, K3b and A (B for minmax), the selects K3a alone. Returns the launch
+    counts of the run, kernels A and B's shapes with their call counts, one
+    block's inputs per shape (cloned), and each query's K3 calls."""
     import torch
 
+    from parseable_tpu_torch.ops import fold_cuda as F
     from parseable_tpu_torch.ops import groupby_cuda as G
-    from parseable_tpu_torch.ops import kernels as K
-    from parseable_tpu_torch.query.session import QuerySession
 
     shapes: dict[str, dict] = {"additive_groupby": {}, "minmax_groupby": {}}
     inputs: dict[str, dict] = {"additive_groupby": {}, "minmax_groupby": {}}
-    real_a, real_b = K.additive_groupby, K.minmax_groupby
+    real_a, real_b = G.additive_groupby, G.minmax_groupby
 
     def record(name, key, tensors):
         shapes[name][key] = shapes[name].get(key, 0) + 1
@@ -729,28 +1061,50 @@ def drive_main_path(p, device=None) -> tuple[dict, dict, dict]:
         return real_b(ids, vals, valid, mask, g, n_min)
 
     on_card = device is None or torch.device(device).type == "cuda"
-    K.additive_groupby, K.minmax_groupby = rec_a, rec_b
-    for name in G.LAUNCHES:
-        G.LAUNCHES[name] = 0
+    counts = (G.LAUNCHES, F.LAUNCHES)
+    reset_launches(counts)
+    G.additive_groupby, G.minmax_groupby = rec_a, rec_b
     try:
-        for qname, sql in QUERIES.items():
-            before = dict(G.LAUNCHES)
-            state_runs(torch, p, qname, sql.format(stream=STREAM), "phase 4", device)
-            delta = {k: G.LAUNCHES[k] - before[k] for k in G.LAUNCHES}
-            if on_card:
-                check(delta["additive_groupby"] > 0, f"{qname}: kernel A never launched")
-                if qname == "minmax":
-                    check(delta["minmax_groupby"] > 0, f"{qname}: kernel B never launched")
-            log(f"phase 4 {qname}: gpu == cpu in every cache state, launches {delta}")
+        with K3Recorder(F) as k3:
+            runs = [(q, sql, None) for q, sql in QUERIES.items()]
+            runs += [(q, sql, (key,)) for q, (sql, key) in SELECT_QUERIES.items()]
+            for qname, sql, select in runs:
+                k3.query = qname
+                before = launch_counts(counts)
+                state_runs(torch, p, qname, sql.format(stream=STREAM), "phase 4", device,
+                           select=select)
+                delta = {k: v - before[k] for k, v in launch_counts(counts).items()}
+                if on_card:
+                    check(delta["mask_ids"] > 0, f"{qname}: K3a never launched")
+                    if select is None:
+                        check(delta["stack_operands"] > 0, f"{qname}: K3b never launched")
+                        check(delta["additive_groupby"] > 0, f"{qname}: kernel A never launched")
+                    else:
+                        check(delta["stack_operands"] == delta["additive_groupby"] == 0,
+                              f"{qname}: a select launched the fold {delta}")
+                    if qname == "minmax":
+                        check(delta["minmax_groupby"] > 0, f"{qname}: kernel B never launched")
+                log(f"phase 4 {qname}: gpu == cpu in every cache state, launches {delta}")
     finally:
-        K.additive_groupby, K.minmax_groupby = real_a, real_b
-    launches = dict(G.LAUNCHES)
+        G.additive_groupby, G.minmax_groupby = real_a, real_b
+    launches = launch_counts(counts)
     if on_card:
         for name, n in launches.items():
             check(n > 0, f"{name} was never launched on the main path")
     log(f"phase 4 launches on the main path: {launches}")
     log_residency(torch, "phase 4", on_card)
-    return launches, shapes, inputs
+    return launches, shapes, inputs, k3
+
+
+def launch_counts(counts: tuple) -> dict:
+    """The kernels' launch counters, merged."""
+    return {k: v for c in counts for k, v in c.items()}
+
+
+def reset_launches(counts: tuple) -> None:
+    for c in counts:
+        for name in c:
+            c[name] = 0
 
 
 def drive_pressure(torch, p, device=None) -> dict:
@@ -761,6 +1115,7 @@ def drive_pressure(torch, p, device=None) -> dict:
     the CPU engine's. Returns the launch counts of the phase."""
     import os
 
+    from parseable_tpu_torch.ops import fold_cuda as F
     from parseable_tpu_torch.ops import groupby_cuda as G
     from parseable_tpu_torch.ops.hotset import get_hotset
     from parseable_tpu_torch.query.session import QuerySession
@@ -774,8 +1129,8 @@ def drive_pressure(torch, p, device=None) -> dict:
     resident = hs.resident_bytes
     budget = int(2.5 * blocks[-1])
     check(budget < resident, f"budget {budget} not below the resident {resident} bytes")
-    for name in G.LAUNCHES:
-        G.LAUNCHES[name] = 0
+    counts = (G.LAUNCHES, F.LAUNCHES)
+    reset_launches(counts)
     os.environ["P_TPU_HOT_BYTES"] = str(budget)
     try:
         runs = []
@@ -799,9 +1154,10 @@ def drive_pressure(torch, p, device=None) -> dict:
     check(runs[-1]["evictions"] > 0, f"pressure: no eviction {runs}")
     check(sum(h["prefetch_hits"] for h in runs) > 0, f"pressure: no prefetch hit {runs}")
     check(all(h["prefetch_errors"] == 0 for h in runs), f"pressure: prefetch errors {runs}")
-    launches = dict(G.LAUNCHES)
+    launches = launch_counts(counts)
     if on_card:
-        check(launches["additive_groupby"] > 0, "pressure: kernel A never launched")
+        check(launches["additive_groupby"] > 0 and launches["mask_ids"] > 0
+              and launches["stack_operands"] > 0, f"pressure: a kernel never launched {launches}")
     log(f"phase 8 launches: {launches}")
     return launches
 
@@ -1116,14 +1472,16 @@ STATS_REGIMES = (
 )
 
 
-def drive_stats(p, device=None) -> tuple[dict, dict, dict]:
+def drive_stats(p, device=None) -> tuple[dict, dict, dict, "K3Recorder"]:
     """Phase 7: the two dashboard queries on the "gpu" engine (on `device`,
     default the card) and the "cpu" engine, cold then warm, as in phase 4;
     every GPU run must stay on the device and launch K5-K7. Returns the
     launch counts of the phase (all kernels), the statistics kernels'
-    shapes with their call counts, and one block's inputs per shape."""
+    shapes with their call counts, one block's inputs per shape, and each
+    query's K3 calls."""
     import torch
 
+    from parseable_tpu_torch.ops import fold_cuda as F
     from parseable_tpu_torch.ops import groupby_cuda as G
     from parseable_tpu_torch.ops import stats_cuda as SC
     from parseable_tpu_torch.query.session import QuerySession
@@ -1154,21 +1512,21 @@ def drive_stats(p, device=None) -> tuple[dict, dict, dict]:
 
     on_card = device is None or torch.device(device).type == "cuda"
     SC.distinct_fold, SC.pct_histogram, SC.centered_m2 = rec_k5, rec_k6, rec_k7
-    counts = (G.LAUNCHES, SC.LAUNCHES)
-    for c in counts:
-        for name in c:
-            c[name] = 0
+    counts = (G.LAUNCHES, SC.LAUNCHES, F.LAUNCHES)
+    reset_launches(counts)
     try:
-        for qname, sql in STATS_QUERIES.items():
-            before = dict(SC.LAUNCHES)
-            out = state_runs(torch, p, qname, sql.format(stream=STREAM), "phase 7", device,
-                             STATS_REL)
-            delta = {k: SC.LAUNCHES[k] - before[k] for k in SC.LAUNCHES}
-            log(f"phase 7 {qname}: gpu == cpu in every cache state, launches {delta}, first rows "
-                f"{json.dumps(rows_of(out[0].table)[:2], default=str)}")
+        with K3Recorder(F) as k3:
+            for qname, sql in STATS_QUERIES.items():
+                k3.query = qname
+                before = launch_counts(counts)
+                out = state_runs(torch, p, qname, sql.format(stream=STREAM), "phase 7", device,
+                                 STATS_REL)
+                delta = {k: v - before[k] for k, v in launch_counts(counts).items()}
+                log(f"phase 7 {qname}: gpu == cpu in every cache state, launches {delta}, first "
+                    f"rows {json.dumps(rows_of(out[0].table)[:2], default=str)}")
     finally:
         SC.distinct_fold, SC.pct_histogram, SC.centered_m2 = (real[k] for k in STATS_KERNELS)
-    launches = {**G.LAUNCHES, **SC.LAUNCHES}
+    launches = launch_counts(counts)
     if on_card:
         for name, n in launches.items():
             check(n > 0, f"{name} was never launched in phase 7")
@@ -1176,7 +1534,7 @@ def drive_stats(p, device=None) -> tuple[dict, dict, dict]:
     check(set(m2_regimes.values()) == {"compact"}, f"K7 left the compact regime: {m2_regimes}")
     log(f"phase 7 launches: {launches}, K7 regimes {m2_regimes}")
     log_residency(torch, "phase 7", on_card)
-    return launches, shapes, inputs
+    return launches, shapes, inputs, k3
 
 # ------------------------------------------------------------------ server
 
@@ -1358,12 +1716,14 @@ def server_queries(torch, G, server, want: dict, where: str, profile_status: boo
     oracle and against the port's CPU engine over the same directories;
     every GPU answer stays on the device. Optionally one more warm run of
     the status query under torch.profiler for the device's idle share."""
+    from parseable_tpu_torch.ops import fold_cuda as F
     from parseable_tpu_torch.query.session import QuerySession
 
+    counts = (G.LAUNCHES, F.LAUNCHES)
     walls: dict[str, dict] = {}
     for qname, sql in SERVER_QUERIES.items():
         text = sql.format(stream=STREAM)
-        before = dict(G.LAUNCHES)
+        before = launch_counts(counts)
         for run in ("cold", "warm"):
             out, wall = http_query(server.port, text)
             walls.setdefault(qname, {})[run] = wall
@@ -1381,9 +1741,10 @@ def server_queries(torch, G, server, want: dict, where: str, profile_status: boo
             )
         cpu = QuerySession(server.state.p, engine="cpu").query(text, "10m", "now")
         same_records(f"{where} {qname}", out["records"], cpu.to_json_rows())
-        delta = {k: G.LAUNCHES[k] - before[k] for k in G.LAUNCHES}
+        delta = {k: v - before[k] for k, v in launch_counts(counts).items()}
         if profile_status:  # on the card
-            check(delta["additive_groupby"] > 0, f"{where} {qname}: kernel A never launched")
+            check(delta["additive_groupby"] > 0 and delta["mask_ids"] > 0,
+                  f"{where} {qname}: a kernel never launched {delta}")
             if qname == "status":
                 check(delta["minmax_groupby"] > 0, f"{where} {qname}: kernel B never launched")
         log(f"phase 6 {where} {qname}: == oracle == cpu engine, launches {delta}")
@@ -1467,6 +1828,7 @@ def drive_server(torch, G, seed: int, device=None) -> dict:
     import numpy as np
 
     from parseable_tpu_torch.config import Options, StorageOptions
+    from parseable_tpu_torch.ops import fold_cuda as F
     from parseable_tpu_torch.server.app import start_server
 
     work = ROOT / "build" / "smoke_server"
@@ -1490,8 +1852,8 @@ def drive_server(torch, G, seed: int, device=None) -> dict:
             return opts
 
         storage = StorageOptions(root=work / "data")
-        for name in G.LAUNCHES:
-            G.LAUNCHES[name] = 0
+        counts = (G.LAUNCHES, F.LAUNCHES)
+        reset_launches(counts)
         # first start: ticks longer than the phase, so the rows stay staged
         on_card = device is None
         server = start_server(options(3600), storage, device)
@@ -1533,7 +1895,7 @@ def drive_server(torch, G, seed: int, device=None) -> dict:
                 f"{time.perf_counter() - t:.2f} s, count(*) {acked}")
         finally:
             server.stop()
-        launches = dict(G.LAUNCHES)
+        launches = launch_counts(counts)
         log(f"phase 6 launches on the server path: {launches}")
         log("phase 6 HTTP query wall s: " + json.dumps({"staging": staging_walls, "lake": lake_walls}))
         if on_card:
@@ -1564,6 +1926,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     try:
         from parseable_tpu_torch.ops import cuda_lib
+        from parseable_tpu_torch.ops import fold_cuda as F
         from parseable_tpu_torch.ops import groupby_cuda as G
         from parseable_tpu_torch.ops import stats_cuda as SC
         from parseable_tpu_torch.ops.enccache import shutdown_enccache
@@ -1593,7 +1956,8 @@ def main() -> int:
     report = probe("cuda")
     check(report.get("healthy") is True, f"device probe failed: {report}")
     log(f"phase 1 device: {report}")
-    log(f"phase 1 build: kernels built and loaded in {cuda_lib.build_all([G.LIBRARY, SC.LIBRARY]):.3f} s")
+    built = cuda_lib.build_all([G.LIBRARY, SC.LIBRARY, F.LIBRARY])
+    log(f"phase 1 build: kernels built and loaded in {built:.3f} s")
     timer = DeviceTimer(torch)
     phase_done("1 device and build")
 
@@ -1617,6 +1981,7 @@ def main() -> int:
         log(f"phase 2 {kind} {json.dumps(res)}")
     edge_cases(torch, G, gen)
     rule_sweep(torch, G, timer, gen)
+    k3_hazards(torch, F, timer, args.seed)
     phase_done("2 regimes, edges, rules")
 
     # -- phases 3, 4, 7 and 8: the lake, then the main path and the
@@ -1628,9 +1993,9 @@ def main() -> int:
     try:
         p = build_lake(work, args.seed, MINUTES, N_BLOCK)
         phase_done("3 lake")
-        launches, shapes, inputs = drive_main_path(p)
+        launches, shapes, inputs, k3_main = drive_main_path(p)
         phase_done("4 main path")
-        stats_launches, stats_shapes, stats_inputs_ = drive_stats(p)
+        stats_launches, stats_shapes, stats_inputs_, k3_stats = drive_stats(p)
         phase_done("7 statistics")
         pressure_launches = drive_pressure(torch, p)
         phase_done("8 hot-set pressure")
@@ -1658,14 +2023,23 @@ def main() -> int:
         "distinct_fold": "parseable_tpu/query/executor_tpu.py:2931",
         "pct_histogram": "parseable_tpu/query/executor_tpu.py:2954",
         "centered_m2": "parseable_tpu/query/executor_tpu.py:889",
+        **dict.fromkeys(K3_KERNELS, "parseable_tpu/query/executor_tpu.py:2852"),
     }
     sources = {
         "additive_groupby": "parseable_tpu_torch/csrc/groupby.cu",
         "minmax_groupby": "parseable_tpu_torch/csrc/groupby.cu",
         **dict.fromkeys(STATS_KERNELS, "parseable_tpu_torch/csrc/stats.cu"),
+        **dict.fromkeys(K3_KERNELS, "parseable_tpu_torch/csrc/fold.cu"),
     }
-    for name in ("additive_groupby", "minmax_groupby", *STATS_KERNELS):
+    for name in ("additive_groupby", "minmax_groupby", *STATS_KERNELS, *K3_KERNELS):
         cases = []
+        for rec in (k3_main, k3_stats) if name in K3_KERNELS else ():
+            # each phase-4/7 query's own block, on the inputs it gave the kernel
+            for qname, data in rec.inputs[name].items():
+                res = k3_case(torch, F, timer, name, data, "main path")
+                res["query"], res["main_path_calls"] = qname, rec.shapes[name][qname]
+                log(f"phase 5 {name} {json.dumps(res)}")
+                cases.append(res)
         if name in STATS_KERNELS:
             for key, calls in sorted(stats_shapes[name].items(), key=str):
                 data = stats_inputs_[name][key]
@@ -1703,7 +2077,7 @@ def main() -> int:
                 "route": "cuda",
                 "source": sources[name],
                 "replaces": replaces[name],
-                # phase 4's count for A and B, phase 7's for K5-K7
+                # phase 4's count for A, B and K3, phase 7's for K5-K7
                 "launches": stats_launches[name] if name in STATS_KERNELS else launches[name],
                 "launches_lake": launches.get(name, 0),
                 "launches_stats": stats_launches[name],

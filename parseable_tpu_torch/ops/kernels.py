@@ -13,7 +13,10 @@ mask instead of compacting rows.
 `fused_groupby_block` runs one block's whole partial aggregate through the
 hand kernels of `ops/groupby_cuda.py`: the additive rows (row count,
 per-aggregate counts, sums) through kernel A, min/max through kernel B. On
-CPU tensors the same calls compute the kernels' plain versions.
+CPU tensors the same calls compute the kernels' plain versions. The
+executor's fold does not build these stacks: kernel K3b
+(`ops/fold_cuda.py stack_operands`) writes A's and B's inputs from the
+block's columns, and the fold calls A and B directly.
 """
 
 from __future__ import annotations

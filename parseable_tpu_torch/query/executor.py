@@ -1148,13 +1148,26 @@ class QueryExecutor:
     # -- order / limit -------------------------------------------------------
 
     def _sort_keys(self, table: pa.Table) -> tuple[pa.Table, list[tuple[str, str]]]:
-        """Resolve ORDER BY keys (aux columns appended for expression keys)."""
+        """Resolve ORDER BY keys (aux columns appended for expression keys;
+        an integer literal n names the n-th output column, as in
+        DataFusion)."""
         sel = self.plan.select
         keys: list[tuple[str, str]] = []
         aux_cols = 0
+        if any(isinstance(i.expr, S.Star) for i in sel.items):
+            outputs = list(table.column_names)
+        else:  # by name: a select's parts unify into name order
+            outputs = list(_dedup([i.alias or S.expr_name(i.expr) for i in sel.items], sel.items))
         for o in sel.order_by:
             name = S.expr_name(o.expr)
-            if isinstance(o.expr, S.Column) and o.expr.name in table.column_names:
+            value = o.expr.value if isinstance(o.expr, S.Literal) else None
+            if isinstance(value, int) and not isinstance(value, bool):
+                if not 1 <= value <= len(outputs):
+                    raise ExecError(
+                        f"ORDER BY position {value} is not in the select list (1..{len(outputs)})"
+                    )
+                keys.append((outputs[value - 1], "descending" if o.desc else "ascending"))
+            elif isinstance(o.expr, S.Column) and o.expr.name in table.column_names:
                 keys.append((o.expr.name, "descending" if o.desc else "ascending"))
             elif name in table.column_names:
                 keys.append((name, "descending" if o.desc else "ascending"))

@@ -1,10 +1,12 @@
 """GPU query executor: predicate + dense group-by aggregation on the card.
 
-Counterpart of `parseable_tpu/query/executor_tpu.py`, dense aggregate path
-only: `_execute_aggregate_tpu` (:1485), `_dense_interim` (:2039), the fold
-of `_get_program`/`fold_one` (:2762/:2852), `_flush_state` (:3159),
-`_transfer` (:3286) and the block cache (`_encoded_block` :1416, the
-prefetcher :1304-1365). Per scanned block:
+Counterpart of `parseable_tpu/query/executor_tpu.py`, the dense aggregate
+path and the select path: `_execute_aggregate_tpu` (:1485),
+`_dense_interim` (:2039), the fold of `_get_program`/`fold_one`
+(:2762/:2852), `_flush_state` (:3159), `_transfer` (:3286), the block cache
+(`_encoded_block` :1416, the prefetcher :1304-1365) and
+`_execute_select_tpu` (:1213, without the adaptive host/device gate). Per
+scanned block:
 
 1. the block resolves through three tiers (`_encoded_block`): the device
    hot set (`ops/hotset.py`: the block's tensors stay on the card, no
@@ -16,43 +18,49 @@ prefetcher :1304-1365). Per scanned block:
    the scan found in either cache arrive as zero-column stubs; a
    query-aware prefetcher (`ops/prefetch.py`) ships the next ones from the
    disk cache on a CUDA stream of its own;
-2. the WHERE tree's string predicates evaluate once per dictionary value
-   into boolean LUTs; the group keys' batch dictionaries fold into global
-   dictionaries, giving batch->global remap LUTs;
+2. the host lowers the WHERE tree (string predicates evaluated once per
+   dictionary value into boolean LUTs), the time bounds, the padding mask,
+   the group keys (batch dictionaries folded into global ones, giving
+   batch->global remaps) and the operand rows of the kernels into one
+   packed K3 program (`ops/fold_cuda.py`);
 3. a shipped block's encoded columns pack into ONE pinned host buffer and
    cross in ONE non_blocking copy, carved back into typed tensors with
    `.view(dtype)`; that payload is what the hot set keeps. The query's
-   LUTs and remaps cross in a small copy of their own, and null-free
-   columns share the query's `ones` mask;
-4. the fold runs on the card: WHERE mask (LUT gathers, compares, IN-lists,
-   time bounds), group ids `sum(code_k * stride_k)` (dict remap gathers and
-   floor-divided time bins), then `fused_groupby_block` — hand kernels A and
-   B — and a fold into the device accumulator by add/min/max; stddev/var
-   centred moments (kernel K7, merged by Chan's update), count(distinct) and
-   approx_distinct bitmaps and registers (K5) and percentile histograms
-   (K6) fold into their own accumulators (`ops/stats_cuda.py`);
+   program (with its LUTs and remaps) and K5's LUTs cross in a small copy
+   of their own;
+4. the fold runs on the card: kernel K3a computes the WHERE mask and the
+   group ids `sum(code_k * stride_k)`, K3b writes the operand rows, then
+   hand kernels A and B and a fold into the device accumulator by
+   add/min/max; stddev/var centred moments (kernel K7, merged by Chan's
+   update), count(distinct) and approx_distinct bitmaps and registers (K5)
+   and percentile histograms (K6) fold into their own accumulators
+   (`ops/stats_cuda.py`);
 5. the accumulators are read back once per capacity epoch and finalized on
    the host in f64 through the CPU engine's shared finalize and
    `_order_limit`.
 
-On the card, sampled block copies and every readback feed the link profile
-(`ops/link.py`), which prices the hot set's evictions.
+A plain SELECT with a WHERE runs K3a alone per block, reads the mask back
+at one byte a row and filters the rows on the host; projection, ORDER BY
+and LIMIT go through the CPU engine. On the card, sampled block copies
+feed the link profile (`ops/link.py`), which prices the hot set's
+evictions.
 
 Shapes outside this slice raise `UnsupportedOnDevice` and take the CPU
 engine, counted in `route_stats["cpu_fallback"]`: aggregates over
 expressions, group spaces beyond `DENSE_G_MAX`, distinct state past 2^24
 (2^27 for HLL) entries, histograms past `PCT_MAX_ELEMS`, distinct over a
-timestamp column, unencodable columns, and plain SELECT. A missing or
-failing card raises; the executor never answers a GPU query on the CPU
-because the card is unavailable. A cache miss is not a route off the card.
+timestamp column, unencodable columns, and WHERE trees the K3 program
+cannot express (per block). A missing or failing card raises; the executor
+never answers a GPU query on the CPU because the card is unavailable. A
+cache miss is not a route off the card.
 
 Precision: per-block reductions run in f32 (blocks <= 2^22 rows keep counts
 exact; sums carry ~1e-6 relative error against the CPU engine's f64);
 cross-epoch accumulation is f64 on the host. Time compares are exact at ms.
 """
-
 from __future__ import annotations
 
+import copy
 import itertools
 import logging
 import re
@@ -70,7 +78,9 @@ import torch
 
 from parseable_tpu_torch import DEFAULT_TIMESTAMP_KEY
 from parseable_tpu_torch.config import Options
-from parseable_tpu_torch.ops import kernels, stats_cuda
+from parseable_tpu_torch.ops import fold_cuda as F
+from parseable_tpu_torch.ops import groupby_cuda, stats_cuda
+from parseable_tpu_torch.ops.fold_cuda import Program, UnsupportedOnDevice
 from parseable_tpu_torch.ops.device import EncodedBatch, EncodedColumn, encode_table
 from parseable_tpu_torch.ops.enccache import get_enccache
 from parseable_tpu_torch.ops.hll_sketch import HLL_M, luts_for_dictionary
@@ -78,8 +88,8 @@ from parseable_tpu_torch.ops.hotset import HotEntry, get_hotset
 from parseable_tpu_torch.ops.link import get_link
 from parseable_tpu_torch.ops.prefetch import ScanPrefetcher
 from parseable_tpu_torch.query import sql as S
-from parseable_tpu_torch.query.executor import AggSpec, HashAggregator, QueryExecutor
-from parseable_tpu_torch.query.planner import LogicalPlan
+from parseable_tpu_torch.query.executor import AggSpec, HashAggregator, QueryExecutor, _arr, evaluate
+from parseable_tpu_torch.query.planner import LogicalPlan, referenced_columns
 from parseable_tpu_torch.query.sketch import DEVICE_NB, QuantileSketch, hist_quantile
 from parseable_tpu_torch.query.stubs import SOURCE_ID_META, hot_key, is_stub
 from parseable_tpu_torch.utils.devicecheck import require_device
@@ -99,10 +109,6 @@ PCT_MAX_ELEMS = 1 << 24
 # byte alignment of each segment in the packed transfer payload, so every
 # segment can be viewed as its own dtype
 _ALIGN = 16
-
-
-class UnsupportedOnDevice(Exception):
-    pass
 
 
 def _holds_time(col: EncodedColumn) -> bool:
@@ -286,145 +292,88 @@ def classify_group_expr(e: S.Expr) -> KeySpec:
 
 
 class PredicateCompiler:
-    """Compile a WHERE tree into device ops, in two phases per batch:
+    """Lower a WHERE tree into the K3 program of one block
+    (`ops/fold_cuda.py Program`), on the host: string predicates evaluate
+    over the *batch* dictionary into boolean LUTs padded to pow2 (cached on
+    the EncodedBatch), time literals become block-relative ms, numeric
+    literals f32. Each node pushes one (value, known) pair of SQL's
+    three-valued logic, so that NOT e is (known & ~value, known): a NOT over
+    a NULL operand drops the row. A node the program cannot express raises
+    UnsupportedOnDevice here, before any launch."""
 
-    - `collect_luts(e, enc)` (host): evaluate string predicates over the
-      *batch* dictionary into boolean LUTs, padded to pow2, and time
-      literals into block-relative ms. Cached on the EncodedBatch.
-    - `trace(e, enc, dev, luts)` (device): emit tensor ops, consuming the
-      LUT tensors and time scalars positionally in the same walk order.
-    """
+    def lower(self, e: S.Expr | None, enc: EncodedBatch, prog: Program) -> None:
+        """Emit `e`'s instructions: one verdict more on the program's stack
+        (TRUE for no WHERE)."""
+        if e is None:
+            prog.const(True)
+        else:
+            self._lower(e, enc, prog)
 
-    # ---------------------------------------------------------- phase A
-
-    def collect_luts(self, e: S.Expr | None, enc: EncodedBatch) -> list:
-        out: list = []
-        if e is not None:
-            self._walk_collect(e, enc, out)
-        return out
-
-    def _walk_collect(self, e: S.Expr, enc: EncodedBatch, out: list) -> None:
+    def _lower(self, e: S.Expr, enc: EncodedBatch, prog: Program) -> None:
         if isinstance(e, S.BinaryOp):
             if e.op in ("and", "or"):
-                self._walk_collect(e.left, enc, out)
-                self._walk_collect(e.right, enc, out)
+                self._lower(e.left, enc, prog)
+                self._lower(e.right, enc, prog)
+                prog.and_() if e.op == "and" else prog.or_()
                 return
             if e.op in ("=", "!=", "<", "<=", ">", ">="):
-                col, op, lit = self._cmp_parts(e, enc)
-                if col.kind == "dict":
-                    out.append(self._dict_lut(enc, col, op, lit))
-                elif col.kind == "time":
-                    # per-block rel-ms literal: a host int, so one fold
-                    # serves every block regardless of its time origin
-                    out.append(self._time_lit(enc, op, lit))
+                self._lower_cmp(e, enc, prog)
                 return
             if e.op in ("like", "ilike", "not_like", "not_ilike"):
+                # a negated LIKE is negated in the LUT; the leaf ANDs valid
                 col = self._column_of(e.left, enc)
                 raw = str(self._literal_of(e.right))
-                out.append(
-                    self._regex_lut(
-                        enc,
-                        col,
-                        _like_to_regex(raw),
-                        re.IGNORECASE if "ilike" in e.op else 0,
-                        e.op.startswith("not_"),
-                    )
-                )
+                flags = re.IGNORECASE if "ilike" in e.op else 0
+                lut = self._regex_lut(enc, col, _like_to_regex(raw), flags, e.op.startswith("not_"))
+                prog.lut(_slot(prog, col), lut)
                 return
         if isinstance(e, S.UnaryOp) and e.op == "not":
-            self._walk_collect(e.operand, enc, out)
+            self._lower(e.operand, enc, prog)
+            prog.not_()
             return
         if isinstance(e, S.Between):
-            self._walk_collect(S.BinaryOp(">=", e.expr, e.low), enc, out)
-            self._walk_collect(S.BinaryOp("<=", e.expr, e.high), enc, out)
+            # NOT BETWEEN = NOT (ge AND le): valid & ~m, known where valid
+            self._lower_cmp(S.BinaryOp(">=", e.expr, e.low), enc, prog)
+            self._lower_cmp(S.BinaryOp("<=", e.expr, e.high), enc, prog)
+            prog.and_()
+            if e.negated:
+                prog.not_()
             return
         if isinstance(e, S.InList):
             col = self._column_of(e.expr, enc)
             if col.kind == "dict":
-                out.append(self._in_lut(enc, e, col))
+                prog.lut(_slot(prog, col), self._in_lut(enc, e, col))
+            elif col.kind in ("num", "bool"):
+                prog.in_f32(_slot(prog, col), [_f32(self._number(i)) for i in e.items], e.negated)
+            else:
+                raise UnsupportedOnDevice("IN on unsupported column kind")
             return
-        if isinstance(e, S.FunctionCall) and e.name in ("regexp_match", "regexp_like"):
-            col = self._column_of(e.args[0], enc)
-            out.append(self._regex_lut(enc, col, str(self._literal_of(e.args[1])), 0, False))
-            return
-        if isinstance(e, (S.IsNull, S.Literal)):
-            return
-        raise UnsupportedOnDevice(f"predicate not device-mappable: {type(e).__name__}")
-
-    # ---------------------------------------------------------- phase B
-
-    def trace(self, e: S.Expr | None, enc: EncodedBatch, dev: dict, luts: list) -> torch.Tensor:
-        if e is None:
-            return dev["__ones"]
-        return self._visit(e, enc, dev, iter(luts))
-
-    def _visit(self, e: S.Expr, enc: EncodedBatch, dev, luts) -> torch.Tensor:
-        if isinstance(e, S.BinaryOp):
-            if e.op == "and":
-                return self._visit(e.left, enc, dev, luts) & self._visit(e.right, enc, dev, luts)
-            if e.op == "or":
-                return self._visit(e.left, enc, dev, luts) | self._visit(e.right, enc, dev, luts)
-            if e.op in ("=", "!=", "<", "<=", ">", ">="):
-                return self._cmp(e, enc, dev, luts)
-            if e.op in ("like", "ilike", "not_like", "not_ilike"):
-                col = self._column_of(e.left, enc)
-                if col.kind != "dict":
-                    raise UnsupportedOnDevice("string predicate on non-string column")
-                return kernels.lut_mask(dev[col.name], next(luts)) & dev[f"{col.name}__valid"]
-        if isinstance(e, S.UnaryOp) and e.op == "not":
-            value, known = self._visit_known(e.operand, enc, dev, luts)
-            return known & ~value
-        if isinstance(e, S.Between):
-            m = self._cmp(S.BinaryOp(">=", e.expr, e.low), enc, dev, luts) & self._cmp(
-                S.BinaryOp("<=", e.expr, e.high), enc, dev, luts
-            )
-            return self._operand_valid(e, enc, dev) & ~m if e.negated else m
-        if isinstance(e, S.InList):
-            return self._in_list(e, enc, dev, luts)
         if isinstance(e, S.IsNull):
-            col = self._column_of(e.expr, enc)
-            valid = dev[f"{col.name}__valid"]
-            return valid if e.negated else ~valid
+            prog.is_null(_slot(prog, self._column_of(e.expr, enc)), e.negated)
+            return
         if isinstance(e, S.FunctionCall) and e.name in ("regexp_match", "regexp_like"):
             col = self._column_of(e.args[0], enc)
-            if col.kind != "dict":
-                raise UnsupportedOnDevice("regex on non-string column")
-            return kernels.lut_mask(dev[col.name], next(luts)) & dev[f"{col.name}__valid"]
+            prog.lut(_slot(prog, col), self._regex_lut(enc, col, str(self._literal_of(e.args[1])), 0, False))
+            return
         if isinstance(e, S.Literal) and isinstance(e.value, bool):
-            return torch.full_like(dev["__ones"], e.value)
+            prog.const(e.value)
+            return
         raise UnsupportedOnDevice(f"predicate not device-mappable: {type(e).__name__}")
 
-    def _visit_known(self, e: S.Expr, enc: EncodedBatch, dev, luts) -> tuple[torch.Tensor, torch.Tensor]:
-        """(true, known) masks of `e` under SQL three-valued logic: a row is
-        true where `e` is TRUE, known where `e` is not NULL. `_visit` gives
-        the true mask, which is all a filter keeps; a NOT needs the known
-        mask too, since NOT NULL is NULL and drops the row."""
-        if isinstance(e, S.BinaryOp) and e.op in ("and", "or"):
-            v1, k1 = self._visit_known(e.left, enc, dev, luts)
-            v2, k2 = self._visit_known(e.right, enc, dev, luts)
-            if e.op == "and":  # FALSE on either side decides
-                return v1 & v2, (k1 & k2) | (k1 & ~v1) | (k2 & ~v2)
-            return v1 | v2, (k1 & k2) | v1 | v2  # TRUE on either side decides
-        if isinstance(e, S.UnaryOp) and e.op == "not":
-            v, k = self._visit_known(e.operand, enc, dev, luts)
-            return k & ~v, k
-        value = self._visit(e, enc, dev, luts)
-        if isinstance(e, (S.IsNull, S.Literal)):
-            return value, dev["__ones"]
-        return value, self._operand_valid(e, enc, dev)
-
-    def _operand_valid(self, e: S.Expr, enc: EncodedBatch, dev) -> torch.Tensor:
-        """Validity of the column a comparison, BETWEEN, IN, LIKE or regex
-        predicate tests (its literals are never NULL)."""
-        if isinstance(e, S.BinaryOp) and e.op in ("=", "!=", "<", "<=", ">", ">="):
-            col = self._cmp_parts(e, enc)[0]
-        elif isinstance(e, S.BinaryOp):
-            col = self._column_of(e.left, enc)
-        elif isinstance(e, (S.Between, S.InList)):
-            col = self._column_of(e.expr, enc)
+    def _lower_cmp(self, e: S.BinaryOp, enc: EncodedBatch, prog: Program) -> None:
+        col, op, lit = self._cmp_parts(e, enc)
+        if col.kind == "dict":
+            prog.lut(_slot(prog, col), self._dict_lut(enc, col, op, lit))
+        elif col.kind == "time":
+            # values are exact int32 ms rel to the block origin, so every
+            # comparison op (incl. sub-second literals) is exact
+            prog.cmp_i32(_slot(prog, col), op, self._time_lit(enc, op, lit))
+        elif col.kind in ("num", "bool"):
+            if not isinstance(lit, (int, float, bool)):
+                raise UnsupportedOnDevice("numeric compared to non-numeric literal")
+            prog.cmp_f32(_slot(prog, col), op, _f32(lit))
         else:
-            col = self._column_of(e.args[0], enc)
-        return dev[f"{col.name}__valid"]
+            raise UnsupportedOnDevice(f"cannot compare column kind {col.kind}")
 
     # ---------------------------------------------------------- shared bits
 
@@ -454,24 +403,6 @@ class PredicateCompiler:
         flip = {"<": ">", "<=": ">=", ">": "<", ">=": "<="}
         return self._column_of(e.right, enc), flip.get(e.op, e.op), self._literal_of(e.left)
 
-    def _cmp(self, e: S.BinaryOp, enc: EncodedBatch, dev, luts) -> torch.Tensor:
-        col, op, lit = self._cmp_parts(e, enc)
-        valid = dev[f"{col.name}__valid"]
-        values = dev[col.name]
-        if col.kind == "dict":
-            mask = kernels.lut_mask(values, next(luts))
-        elif col.kind == "time":
-            # values are exact int32 ms rel to the block origin, so every
-            # comparison op (incl. sub-second literals) is exact
-            mask = _num_cmp(values, op, next(luts))
-        elif col.kind in ("num", "bool"):
-            if not isinstance(lit, (int, float, bool)):
-                raise UnsupportedOnDevice("numeric compared to non-numeric literal")
-            mask = _num_cmp(values, op, _f32(lit))
-        else:
-            raise UnsupportedOnDevice(f"cannot compare column kind {col.kind}")
-        return mask & valid
-
     @staticmethod
     def _time_lit(enc: EncodedBatch, op: str, lit: Any) -> int:
         """Literal as block-relative int ms. Sub-ms literals FLOOR to ms,
@@ -487,20 +418,12 @@ class PredicateCompiler:
         rel = _dt_to_us(lit_dt) // 1000 - enc.time_origin_ms
         return max(-(2**31) + 2, min(2**31 - 2, rel))
 
-    def _in_list(self, e: S.InList, enc: EncodedBatch, dev, luts) -> torch.Tensor:
-        col = self._column_of(e.expr, enc)
-        valid = dev[f"{col.name}__valid"]
-        if col.kind == "dict":
-            return kernels.lut_mask(dev[col.name], next(luts)) & valid
-        if col.kind in ("num", "bool"):
-            values = dev[col.name]
-            mask = torch.zeros_like(valid)
-            for item in e.items:
-                mask = mask | (values == _f32(self._literal_of(item)))
-            if e.negated:
-                mask = ~mask
-            return mask & valid
-        raise UnsupportedOnDevice("IN on unsupported column kind")
+    def _number(self, e: S.Expr) -> float:
+        """A numeric IN-list item (a literal the f32 compare can take)."""
+        try:
+            return float(self._literal_of(e))
+        except (TypeError, ValueError):
+            raise UnsupportedOnDevice("numeric IN-list item is not a number") from None
 
     # ---------------------------------------------------------- LUT builders
     # LUTs are built over the BATCH dictionary (codes index it directly) and
@@ -598,15 +521,10 @@ def _f32(v: Any) -> float:
     return float(np.float32(float(v)))
 
 
-def _num_cmp(values: torch.Tensor, op: str, threshold) -> torch.Tensor:
-    return {
-        "=": values == threshold,
-        "!=": values != threshold,
-        "<": values < threshold,
-        "<=": values <= threshold,
-        ">": values > threshold,
-        ">=": values >= threshold,
-    }[op]
+def _slot(prog: Program, col: EncodedColumn) -> int:
+    """The program slot of a column: its values, and its validity unless
+    the column has no nulls."""
+    return prog.slot(col.name, None if col.all_valid else f"{col.name}__valid")
 
 
 # ------------------------------------------------------------ dense agg state
@@ -770,52 +688,85 @@ class PlanLayout:
     distinct_sketch: tuple[bool, ...] = ()
 
 
-def _kernel_stacks(dev: dict, layout: PlanLayout, local_rows: int, device: torch.device):
-    """Build fused_groupby_block inputs per the AccLayout kernel stacking:
+@dataclass(frozen=True)
+class OperandRows:
+    """Where the operands of A, B and K5-K7 sit in K3b's two matrices
+    (`_emit_operands` writes them in this order, the AccLayout's):
 
-    sums rows:  sum_cols | sq_cols (x; the M2 rows come from kernel K7)
-    mins rows:  min_cols | pct_cols (exact vmin)
-    maxs rows:  max_cols | pct_cols (exact vmax)
-    valid rows mirror that order then append cnt_cols; the percentile
-    duplicates get NaN-aware validity.
+    f32:  [0] mask | n_all validity rows: sum_cols, sq_cols, min_cols,
+          pct_cols (NaN-aware), max_cols, pct_cols (NaN-aware), cnt_cols
+          | masked values of sum_cols, sq_cols  (kernel A's rows end here)
+          | values of min_cols, pct_cols, max_cols, pct_cols  (kernel B)
+    bool: validity of min_cols, pct_cols (NaN-aware), max_cols, pct_cols
+          (NaN-aware)  (kernel B) | sq_cols (K7) | distinct_cols (K5)
 
-    Returns (sum_values, min_values, max_values, valid, n_sumk, n_mink,
-    n_maxk), each tensor shaped [rows, local_rows]."""
+    Every validity row is ANDed with the mask."""
 
-    def col(n: str) -> torch.Tensor:
-        return dev[n].to(torch.float32)
+    n_sum: int
+    n_sq: int
+    n_min: int  # min_cols
+    n_max: int  # max_cols
+    n_pct: int
+    n_cnt: int
 
-    def valid_of(n: str) -> torch.Tensor:
-        return dev[f"{n}__valid"]
+    @classmethod
+    def of(cls, layout: "PlanLayout") -> "OperandRows":
+        return cls(len(layout.sum_cols), len(layout.sq_cols), len(layout.min_cols),
+                   len(layout.max_cols), len(layout.pct_cols), len(layout.cnt_cols))
 
-    def nn_valid(n: str) -> torch.Tensor:  # NaN-aware (percentile rows)
-        return valid_of(n) & ~torch.isnan(col(n))
+    @property
+    def n_sumk(self) -> int:  # A's value rows: sums, then stddev/var x
+        return self.n_sum + self.n_sq
 
-    def stack(rows: list[torch.Tensor], dtype=torch.float32) -> torch.Tensor:
-        if not rows:
-            return torch.zeros((0, local_rows), dtype=dtype, device=device)
-        return torch.stack(rows)
+    @property
+    def n_mink(self) -> int:  # B's min rows: mins, then percentile vmin
+        return self.n_min + self.n_pct
 
-    sum_rows = [col(n) for n in layout.sum_cols + layout.sq_cols]
-    min_rows = [col(n) for n in layout.min_cols + layout.pct_cols]
-    max_rows = [col(n) for n in layout.max_cols + layout.pct_cols]
-    valid_rows = (
-        [valid_of(n) for n in layout.sum_cols + layout.sq_cols]
-        + [valid_of(n) for n in layout.min_cols]
-        + [nn_valid(n) for n in layout.pct_cols]
-        + [valid_of(n) for n in layout.max_cols]
-        + [nn_valid(n) for n in layout.pct_cols]
-        + [valid_of(n) for n in layout.cnt_cols]
-    )
-    return (
-        stack(sum_rows),
-        stack(min_rows),
-        stack(max_rows),
-        stack(valid_rows, torch.bool),
-        len(sum_rows),
-        len(min_rows),
-        len(max_rows),
-    )
+    @property
+    def n_maxk(self) -> int:
+        return self.n_max + self.n_pct
+
+    @property
+    def n_all(self) -> int:  # A's validity rows
+        return self.n_sumk + self.n_mink + self.n_maxk + self.n_cnt
+
+    @property
+    def n_a(self) -> int:  # kernel A's rows
+        return 1 + self.n_all + self.n_sumk
+
+    @property
+    def n_b(self) -> int:  # kernel B's rows
+        return self.n_mink + self.n_maxk
+
+
+def _emit_operands(prog: Program, layout: "PlanLayout", enc: EncodedBatch) -> None:
+    """Append K3b's operand rows for `layout` (order: `OperandRows`)."""
+
+    def slot(name: str) -> int:
+        return _slot(prog, enc.columns[name])
+
+    def live(names: list[str], *, nan_aware: bool = False, bool_out: bool = False) -> None:
+        for n in names:
+            prog.row(F.ROW_LIVE, slot(n), nan_aware=nan_aware, bool_out=bool_out)
+
+    def values(names: list[str], op: int) -> None:
+        for n in names:
+            prog.row(op, slot(n))
+
+    lay = layout
+    prog.row(F.ROW_MASK)
+    live(lay.sum_cols + lay.sq_cols + lay.min_cols)
+    live(lay.pct_cols, nan_aware=True)
+    live(lay.max_cols)
+    live(lay.pct_cols, nan_aware=True)
+    live(lay.cnt_cols)
+    values(lay.sum_cols + lay.sq_cols, F.ROW_MASKED)
+    values(lay.min_cols + lay.pct_cols + lay.max_cols + lay.pct_cols, F.ROW_VALUE)
+    live(lay.min_cols, bool_out=True)
+    live(lay.pct_cols, nan_aware=True, bool_out=True)
+    live(lay.max_cols, bool_out=True)
+    live(lay.pct_cols, nan_aware=True, bool_out=True)
+    live(lay.sq_cols + lay.distinct_cols, bool_out=True)
 
 
 def _chan_merge_m2(acc_n, acc_s, acc_m2, b_n, b_s, b_m2) -> torch.Tensor:
@@ -915,6 +866,12 @@ _TORCH_DTYPES = {
 }
 
 
+def _strip_where(sel: S.Select) -> S.Select:
+    out = copy.copy(sel)
+    out.where = None
+    return out
+
+
 def _concat_tables(tables: list[pa.Table]) -> pa.Table:
     if len(tables) == 1:
         return tables[0]
@@ -941,7 +898,6 @@ class GpuQueryExecutor(QueryExecutor):
         # stay where they are (a pathless profile, no re-rooted cache)
         self._staging_options = options
         self.device = require_device(device)
-        self._ones: dict[int, torch.Tensor] = {}
         # per-query route observability: how every scanned block was
         # dispatched, plus the transfer bytes each direction cost
         self.route_stats: dict[str, int] = {
@@ -993,18 +949,11 @@ class GpuQueryExecutor(QueryExecutor):
                     logger.info("GPU path unsupported (%s); CPU engine", e)
                     self.route_stats["cpu_fallback"] += 1
                     return super()._execute_aggregate(self._materialize(t) for t in tables)
-            # plain SELECT (device WHERE mask + host filter) is later work
-            self.route_stats["cpu_fallback"] += 1
-            return super()._execute_select(tables)
+            if self.plan.select.where is None:
+                return super()._execute_select(tables)  # nothing for the card to do
+            return self._execute_select_gpu(tables)
         finally:
             self._close_prefetcher()
-
-    def _device_ones(self, block_rows: int) -> torch.Tensor:
-        ones = self._ones.get(block_rows)
-        if ones is None:
-            ones = torch.ones(block_rows, dtype=torch.bool, device=self.device)
-            self._ones[block_rows] = ones
-        return ones
 
     def _count(self, key: str, n: int) -> None:
         with self._stats_lock:
@@ -1188,24 +1137,71 @@ class GpuQueryExecutor(QueryExecutor):
             hotset.put(key, HotEntry(dev=dev, meta=enc, nbytes=nbytes))
         return enc, dev, "device_cold"
 
-    def _attach(self, block: dict, enc: EncodedBatch, aux: dict[str, np.ndarray]) -> dict:
-        """This query's view of a block: its tensors, the shared `ones`
-        mask for null-free columns, and the query's LUTs and remaps
-        (`aux`), shipped in their own small pinned copy. Where the block's
-        own copy was a link-profile sample, this small copy is timed too:
-        it teaches the profile the per-copy latency."""
-        ones = self._device_ones(enc.block_rows)
+    def _attach(self, block: dict, aux: dict[str, np.ndarray]) -> dict:
+        """This query's view of a block: its tensors and the query's K3
+        program and K5 LUTs (`aux`), shipped in one small pinned copy of
+        their own. Where the block's own copy was a link-profile sample,
+        this small copy is timed too: it teaches the profile the per-copy
+        latency."""
         dev = dict(block)
-        for name, col in enc.columns.items():
-            if col.all_valid:
-                dev[f"{name}__valid"] = ones
-        dev["__ones"] = ones
-        if aux:
-            aux_dev, nbytes = _copy(list(aux.items()), self.device, self._sample_aux)
-            self._count("h2d_bytes", nbytes)
-            self._count("h2d_aux_bytes", nbytes)
-            dev.update(aux_dev)
+        aux_dev, nbytes = _copy(list(aux.items()), self.device, self._sample_aux)
+        self._count("h2d_bytes", nbytes)
+        self._count("h2d_aux_bytes", nbytes)
+        dev.update(aux_dev)
         return dev
+
+    # ----------------------------------------------------------------- select
+
+    def _execute_select_gpu(self, tables: Iterator[pa.Table]) -> pa.Table:
+        """Plain SELECT: the WHERE mask on the card (K3a, no keys), read back
+        at one byte a row, the rows filtered on the host; projection, time
+        bounds, ORDER BY, OFFSET and LIMIT through the CPU engine. Only the
+        predicate's columns (and the timestamp) are encoded and shipped, so
+        the hot set and the encoded-block cache serve them. A block whose
+        WHERE does not lower is filtered on the host (`cpu_fallback`)."""
+        sel = self.plan.select
+        needed = referenced_columns(sel.where)
+        if self.plan.needed_columns is None or DEFAULT_TIMESTAMP_KEY in self.plan.needed_columns:
+            needed.add(DEFAULT_TIMESTAMP_KEY)  # the JAX package's set, where the scan reads it
+        compiler = PredicateCompiler()
+
+        def filtered() -> Iterator[pa.Table]:
+            for table in self._blocks(tables):
+                progs: list[Program] = []
+
+                def check(enc: EncodedBatch) -> None:
+                    # lowered before any copy: an inexpressible WHERE ships nothing
+                    with self._stage("encode"):
+                        prog = Program()
+                        compiler.lower(sel.where, enc, prog)
+                    progs.append(prog)
+
+                try:
+                    enc, block, route = self._encoded_block(table, needed, set(), check)
+                except UnsupportedOnDevice as e:
+                    logger.debug("select block on CPU (%s)", e)
+                    self.route_stats["cpu_fallback"] += 1
+                    # the WHERE captured above: the plan's is stripped meanwhile
+                    t = self._materialize(table)
+                    yield t.filter(_arr(evaluate(sel.where, t), t))
+                    continue
+                prog = progs[-1]
+                with self._stage("transfer"):
+                    dev = self._attach(block, {"__prog": prog.pack()})
+                self._count(route, 1)
+                with self._stage("fold"):
+                    slots = [(dev[v] if v else None, dev[m] if m else None) for v, m in prog.slots]
+                    mask, _ = F.mask_ids(dev["__prog"], slots, enc.block_rows, with_ids=False)
+                with self._stage("finalize"):
+                    keep = self._readback(mask, np.bool_)[: enc.num_rows]
+                yield self._materialize(table).filter(pa.array(keep))
+
+        inner = QueryExecutor(self.plan)
+        inner.plan.select = _strip_where(sel)
+        try:
+            return inner._execute_select(filtered())
+        finally:
+            inner.plan.select = sel
 
     # -------------------------------------------------------------- aggregate
 
@@ -1263,8 +1259,8 @@ class GpuQueryExecutor(QueryExecutor):
             sums (incl. stddev x and M2) | mins (incl. pct vmin) | maxs."""
             a = torch.zeros((lay.n_rows, num_groups), dtype=torch.float32, device=self.device)
             lo = 1 + lay.n_allk + lay.n_sumk
-            a[lo : lo + lay.n_mink] = kernels.F32_MAX
-            a[lo + lay.n_mink :] = -kernels.F32_MAX
+            a[lo : lo + lay.n_mink] = groupby_cuda.F32_MAX
+            a[lo + lay.n_mink :] = -groupby_cuda.F32_MAX
             return a
 
         def new_flat(size: int) -> torch.Tensor:
@@ -1305,7 +1301,8 @@ class GpuQueryExecutor(QueryExecutor):
                     raise UnsupportedOnDevice("device state budget exceeded earlier in the scan")
                 enc, block, route = self._encoded_block(table, needed, dict_cols, check_block)
                 with self._stage("encode"):
-                    luts = compiler.collect_luts(sel.where, enc)
+                    prog = Program()
+                    compiler.lower(sel.where, enc, prog)
                     remaps = []
                     for ks in key_specs:
                         if ks.kind != "dict":
@@ -1357,25 +1354,20 @@ class GpuQueryExecutor(QueryExecutor):
                     acc = new_acc(acc_groups)
                     dacc = [new_flat(acc_groups * c) for c in dcaps]
                     pacc = [new_flat(acc_groups * DEVICE_NB) for _ in lay.pct_idx]
-                time_args = self._time_args(enc, key_specs, bounds_ms)
-                aux = {f"__lut{i}": l for i, l in enumerate(luts) if isinstance(l, np.ndarray)}
-                aux.update({f"__remap{i}": r for i, r in enumerate(remaps)})
+                with self._stage("encode"):
+                    self._finish_program(prog, enc, block, key_specs, remaps, layout, bounds_ms)
+                aux = {"__prog": prog.pack()}
                 aux.update({f"__dremap{i}": r for i, r in enumerate(dremaps)})
                 with self._stage("transfer"):
-                    dev = self._attach(block, enc, aux)
+                    dev = self._attach(block, aux)
                 self._count(route, 1)
-                dev_luts = [
-                    dev[f"__lut{i}"] if isinstance(l, np.ndarray) else l for i, l in enumerate(luts)
-                ]
-                dev_remaps = [dev[f"__remap{i}"] for i in range(len(remaps))]
                 dev_dremaps = [
                     dev[f"__dremap{i}"].view(2, -1) if sk else dev[f"__dremap{i}"]
                     for i, sk in enumerate(dk_sketch)
                 ]
                 with self._stage("fold"):
                     self._fold_one(
-                        acc, dacc, pacc, enc, dev, dev_luts, dev_remaps, dev_dremaps, time_args,
-                        layout, acc_groups, bounds_ms, compiler,
+                        acc, dacc, pacc, enc.block_rows, dev, prog, dev_dremaps, layout, acc_groups
                     )
             except UnsupportedOnDevice as e:
                 logger.debug("batch on CPU (%s)", e)
@@ -1423,88 +1415,103 @@ class GpuQueryExecutor(QueryExecutor):
         if buf:
             yield _concat_tables(buf)
 
+    def _finish_program(
+        self,
+        prog: Program,
+        enc: EncodedBatch,
+        block: dict,
+        key_specs: list[KeySpec],
+        remaps: list[np.ndarray],
+        layout: PlanLayout,
+        bounds_ms: tuple[int | None, int | None],
+    ) -> None:
+        """The rest of a block's K3 program after its WHERE: the time
+        bounds and the padding mask ANDed into the verdict, one key
+        instruction per GROUP BY key (mixed radix by capacity) and the
+        operand rows of `layout`."""
+        time_args = self._time_args(enc, key_specs, bounds_ms)
+        bi = 2 * sum(1 for ks in key_specs if ks.kind == "timebin")
+        ts = enc.columns.get(DEFAULT_TIMESTAMP_KEY)
+        if ts is not None and any(b is not None for b in bounds_ms):
+            if ts.kind != "time":
+                raise UnsupportedOnDevice(f"time bounds over a {ts.kind}-encoded timestamp")
+            for b, op in zip(bounds_ms, (">=", "<")):
+                if b is not None:
+                    prog.cmp_i32(_slot(prog, ts), op, time_args[bi])
+                    prog.and_()
+                    bi += 1
+        if "__rowmask" in block:
+            prog.is_null(prog.slot(None, "__rowmask"), negated=True)
+            prog.and_()
+        stride = 1
+        ri = ti = 0
+        for ks in key_specs:
+            slot = _slot(prog, enc.columns[ks.column])
+            if ks.kind == "dict":
+                prog.key_dict(slot, remaps[ri], ks.capacity, stride)
+                ri += 1
+            else:
+                shift, k_off = time_args[ti], time_args[ti + 1]
+                prog.key_time(slot, shift, ks.bin_ms, k_off, ks.capacity, stride)
+                ti += 2
+            stride *= ks.capacity
+        _emit_operands(prog, layout, enc)
+
     def _fold_one(
         self,
         acc: torch.Tensor,
         dacc: list[torch.Tensor],
         pacc: list[torch.Tensor],
-        enc: EncodedBatch,
+        rows: int,
         dev: dict,
-        luts: list,
-        remaps: list,
+        prog: Program,
         dremaps: list,
-        time_args: list[int],
         layout: PlanLayout,
         num_groups: int,
-        bounds_ms: tuple[int | None, int | None],
-        compiler: PredicateCompiler,
     ) -> None:
-        """Mask + group ids + one block's partial aggregate, folded into the
-        accumulators IN PLACE (add, min/max, Chan merge of M2, max for the
-        distinct bitmaps and registers, add for the histograms); they are
-        owned by this query alone."""
-        rows = enc.block_rows
-        mask = compiler.trace(self.plan.select.where, enc, dev, luts)
-        mask = mask & dev.get("__rowmask", dev["__ones"])
-        n_timebin = sum(1 for ks in layout.key_specs if ks.kind == "timebin")
-        if any(b is not None for b in bounds_ms) and DEFAULT_TIMESTAMP_KEY in enc.columns:
-            ts = dev[DEFAULT_TIMESTAMP_KEY]
-            bi = 2 * n_timebin
-            if bounds_ms[0] is not None:
-                mask = mask & (ts >= time_args[bi])
-                bi += 1
-            if bounds_ms[1] is not None:
-                mask = mask & (ts < time_args[bi])
-            mask = mask & dev[f"{DEFAULT_TIMESTAMP_KEY}__valid"]
-
-        ids = torch.zeros(rows, dtype=torch.int32, device=self.device)
-        stride = 1
-        ri = ti = 0
-        for ks in layout.key_specs:
-            cap = ks.capacity
-            if ks.kind == "dict":
-                codes = torch.clamp(kernels.lut_mask(dev[ks.column], remaps[ri]), max=cap - 1)
-                ri += 1
-            else:
-                shift, k_off = time_args[ti], time_args[ti + 1]
-                ti += 2
-                # floor division, as jnp's // on int32 (negative offsets)
-                binned = torch.div(dev[ks.column] + shift, ks.bin_ms, rounding_mode="floor")
-                codes = torch.clamp(binned + k_off, 0, cap - 1)
-            ids += codes.to(torch.int32) * stride
-            stride *= cap
-
-        sum_v, min_v, max_v, valid_v, n_sumk, n_mink, n_maxk = _kernel_stacks(
-            dev, layout, rows, self.device
-        )
-        count, pac, sums, mins, maxs = kernels.fused_groupby_block(
-            ids, mask, sum_v, min_v, max_v, valid_v, num_groups, n_sumk, n_mink, n_maxk
-        )
-        n_sum, n_sq, n_allk = len(layout.sum_cols), len(layout.sq_cols), valid_v.shape[0]
-        a0 = 1 + n_allk + n_sumk  # first M2 row
-        if n_sq:
+        """One block: mask and group ids (K3a), the operand rows (K3b), the
+        partial aggregate (A, B, K5-K7), folded into the accumulators IN
+        PLACE (add, min/max, Chan merge of M2, max for the distinct bitmaps
+        and registers, add for the histograms); they are owned by this
+        query alone."""
+        words = dev["__prog"]
+        slots = [(dev[v] if v else None, dev[m] if m else None) for v, m in prog.slots]
+        mask, ids = F.mask_ids(words, slots, rows)
+        frows, brows = F.stack_operands(words, slots, mask, prog.n_frows, prog.n_brows)
+        o = OperandRows.of(layout)
+        adds = groupby_cuda.additive_groupby(ids, frows[: o.n_a], num_groups)
+        a0 = o.n_a  # first M2 row of the accumulator
+        if o.n_sq:
             # stddev/var: this block's centred moments (K7) about its own
             # per-group means, which stay on the stream, then Chan's merge
             # with the PRE-block count and sum, before the add below
-            b_n, b_s = pac[n_sum:n_sumk], sums[n_sum:]
+            pac, sums = adds[1 : 1 + o.n_all], adds[1 + o.n_all :]
+            b_n, b_s = pac[o.n_sum : o.n_sumk], sums[o.n_sum :]
             m2 = stats_cuda.centered_m2(
-                ids, sum_v[n_sum:], valid_v[n_sum:n_sumk], mask, b_s / b_n.clamp_min(1.0)
+                ids, frows[1 + o.n_all + o.n_sum : o.n_a], brows[o.n_b : o.n_b + o.n_sq], mask,
+                b_s / b_n.clamp_min(1.0),
             )
-            acc[a0 : a0 + n_sq] = _chan_merge_m2(
-                acc[1 + n_sum : 1 + n_sumk], acc[1 + n_allk + n_sum : a0],
-                acc[a0 : a0 + n_sq], b_n, b_s, m2,
+            acc[a0 : a0 + o.n_sq] = _chan_merge_m2(
+                acc[1 + o.n_sum : 1 + o.n_sumk], acc[1 + o.n_all + o.n_sum : a0],
+                acc[a0 : a0 + o.n_sq], b_n, b_s, m2,
             )
-        acc[0] += count
-        acc[1:a0] += torch.cat([pac, sums], dim=0)
-        lo = a0 + n_sq
-        acc[lo : lo + n_mink] = torch.minimum(acc[lo : lo + n_mink], mins)
-        acc[lo + n_mink :] = torch.maximum(acc[lo + n_mink :], maxs)
+        acc[:a0] += adds  # count | per-agg counts | sums
+        if o.n_b:
+            mins, maxs = groupby_cuda.minmax_groupby(
+                ids, frows[o.n_a : o.n_a + o.n_b], brows[: o.n_b], mask, num_groups, o.n_mink
+            )
+            lo = a0 + o.n_sq
+            acc[lo : lo + o.n_mink] = torch.minimum(acc[lo : lo + o.n_mink], mins)
+            acc[lo + o.n_mink :] = torch.maximum(acc[lo + o.n_mink :], maxs)
         # count(distinct) presence / approx_distinct HLL ranks (K5)
-        for d, col, cap, lut in zip(dacc, layout.distinct_cols, layout.distinct_caps, dremaps):
-            stats_cuda.distinct_fold(d, ids, dev[col], mask & dev[f"{col}__valid"], cap, lut)
+        live = o.n_b + o.n_sq
+        for i, (d, col, cap, lut) in enumerate(
+            zip(dacc, layout.distinct_cols, layout.distinct_caps, dremaps)
+        ):
+            stats_cuda.distinct_fold(d, ids, dev[col], brows[live + i], cap, lut)
         # percentile histograms (K6; NaN values are dropped by the kernel)
-        for h, col in zip(pacc, layout.pct_cols):
-            stats_cuda.pct_histogram(h, dev[col].to(torch.float32), ids, mask & dev[f"{col}__valid"])
+        for j, h in enumerate(pacc):
+            stats_cuda.pct_histogram(h, frows[o.n_a + o.n_min + j], ids, brows[o.n_min + j])
 
     # ------------------------------------------------------------- internals
 

@@ -667,3 +667,142 @@ def test_cuda_block_tiers_match_the_cpu_engine(cuda, tmp_path, monkeypatch, budg
     finally:
         p.shutdown()
         get_hotset().clear()
+
+
+# ------------------------------------------------------------ K3 (fold.cu)
+
+
+def _k3_block(n: int, offset: int):
+    """chip_smoke.py's K3 hazard block: int8/int16/int32 codes, f32 values
+    with NaN, +-inf, -0.0 and NULLs, int32 times out to +-2^31 with NULLs,
+    a padding mask, each a view `offset` elements off its buffer."""
+    import chip_smoke
+
+    return chip_smoke.k3_block(torch, np, n, offset, np.random.default_rng(3))
+
+
+def _k3_programs():
+    """chip_smoke.py's K3 programs: every opcode and operand row."""
+    import chip_smoke
+
+    from parseable_tpu_torch.ops import fold_cuda as F
+
+    return chip_smoke.k3_programs(F, np, np.random.default_rng(4))
+
+
+def _k3_run(prog, block):
+    words = torch.from_numpy(prog.pack())
+    words_cuda = words.cuda()
+    slots = [(block[v] if v else None, block[m] if m else None) for v, m in prog.slots]
+    cpu_slots = [tuple(t.cpu() if t is not None else None for t in s) for s in slots]
+    return words, words_cuda, slots, cpu_slots
+
+
+@pytest.mark.parametrize("n,offset", [(1 << 16, 0), (70_001, 1), (70_001, 3)])
+def test_cuda_k3_matches_plain(cuda, n, offset):
+    """K3a and K3b against their plain versions, bit for bit, over every
+    opcode and hazard: IEEE compares on NaN, floor division and wrapping
+    int32 adds of the time key, sign-extended int8 codes, NULLs under
+    three-valued connectives, odd block sizes, views aligned to their
+    element size only."""
+    from parseable_tpu_torch.ops import fold_cuda as F
+
+    block = _k3_block(n, offset)
+    for name, prog in _k3_programs():
+        words, words_cuda, slots, cpu_slots = _k3_run(prog, block)
+        before = dict(F.LAUNCHES)
+        mask, ids = F.mask_ids(words_cuda, slots, n)
+        pmask, pids = F.mask_ids_plain(words, cpu_slots, n)
+        assert F.LAUNCHES["mask_ids"] == before["mask_ids"] + 1
+        assert torch.equal(mask.cpu(), pmask), name
+        assert torch.equal(ids.cpu(), pids), name
+        if prog.n_frows + prog.n_brows:
+            frows, brows = F.stack_operands(words_cuda, slots, mask, prog.n_frows, prog.n_brows)
+            pf, pb = F.stack_operands_plain(words, cpu_slots, pmask, prog.n_frows, prog.n_brows)
+            assert torch.equal(frows.cpu().view(torch.int32), pf.view(torch.int32)), name
+            assert torch.equal(brows.cpu(), pb), name
+    assert 0 < int(mask.sum()) < n  # the last program's verdicts are mixed
+
+
+def test_cuda_k3_launches_on_the_current_stream(cuda):
+    """K3a and K3b enqueue on the caller's current stream: on a side stream
+    that first waits behind a device spin, their outputs are still those
+    of the plain versions once that stream is synchronized."""
+    from parseable_tpu_torch.ops import fold_cuda as F
+
+    n = 70_001
+    block = _k3_block(n, 1)
+    name, prog = _k3_programs()[-1]
+    words, words_cuda, slots, cpu_slots = _k3_run(prog, block)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(50_000_000)
+        mask, ids = F.mask_ids(words_cuda, slots, n)
+        frows, brows = F.stack_operands(words_cuda, slots, mask, prog.n_frows, prog.n_brows)
+    side.synchronize()
+    pmask, pids = F.mask_ids_plain(words, cpu_slots, n)
+    pf, pb = F.stack_operands_plain(words, cpu_slots, pmask, prog.n_frows, prog.n_brows)
+    assert torch.equal(mask.cpu(), pmask) and torch.equal(ids.cpu(), pids)
+    assert torch.equal(frows.cpu().view(torch.int32), pf.view(torch.int32))
+    assert torch.equal(brows.cpu(), pb)
+
+
+def test_cuda_k3_refuses_bad_inputs_and_a_failed_build(cuda, tmp_path, monkeypatch):
+    """A CUDA tensor never falls back to the plain version: inputs the
+    kernel does not take, and a library that does not build, raise
+    KernelError."""
+    from parseable_tpu_torch.ops import cuda_lib
+    from parseable_tpu_torch.ops import fold_cuda as F
+
+    block = _k3_block(1000, 0)
+    name, prog = _k3_programs()[0]
+    words, words_cuda, slots, _ = _k3_run(prog, block)
+    with pytest.raises(F.KernelError):  # the program on the host, the columns on the card
+        F.mask_ids(words, slots, 1000)
+    with pytest.raises(F.KernelError):  # a column of another length
+        F.mask_ids(words_cuda, [(block["c8"][:999], None)], 1000)
+    broken = tmp_path / "csrc"
+    broken.mkdir()
+    (broken / "fold.cu").write_text("this is not CUDA\n")
+    monkeypatch.setattr(cuda_lib, "CSRC", broken)
+    monkeypatch.setattr(cuda_lib, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(F, "LIBRARY", cuda_lib.CudaLibrary("fold.cu", F._bind))
+    with pytest.raises(F.KernelError, match="nvcc failed"):
+        F.mask_ids(words_cuda, slots, 1000)
+
+
+@pytest.mark.parametrize(
+    "sql",
+    [
+        "SELECT p_timestamp, host, message, status FROM t WHERE status >= 404 "
+        "AND message LIKE '%error%' ORDER BY p_timestamp DESC LIMIT 100",
+        "SELECT host, lat FROM t WHERE host IN ('h1', 'h7') AND NOT (lat > 50) AND lat <> 3",
+    ],
+)
+def test_cuda_select_matches_plain_path(cuda, sql, monkeypatch):
+    """The select path on the card (K3a's mask, read back, rows filtered on
+    the host) against the same executor on the CPU, row for row."""
+    from parseable_tpu_torch.ops import fold_cuda as F
+    from parseable_tpu_torch.ops.hotset import get_hotset
+    from parseable_tpu_torch.query.executor_cuda import SOURCE_ID_META, GpuQueryExecutor
+    from parseable_tpu_torch.query.planner import plan
+    from parseable_tpu_torch.query.sql import parse_sql
+
+    tables = [
+        _table(s, 20_001).replace_schema_metadata({SOURCE_ID_META: f"s{s}".encode()})
+        for s in (1, 2)
+    ]
+    get_hotset().clear()
+    monkeypatch.setenv("P_TPU_ENC_CACHE", "0")
+    before = F.LAUNCHES["mask_ids"]
+    on_card = GpuQueryExecutor(plan(parse_sql(sql)), device=cuda)
+    got = on_card.execute(iter(tables)).to_pylist()
+    routes = on_card.route_stats
+    assert routes["cpu_fallback"] == 0 and routes["device_cold"] == 2, routes
+    assert F.LAUNCHES["mask_ids"] == before + 2
+    assert routes["d2h_bytes"] == 2 * 32768  # one byte a row of each padded block
+    ref = GpuQueryExecutor(plan(parse_sql(sql)), device="cpu").execute(iter(tables)).to_pylist()
+    if "ORDER BY" not in sql:
+        got, ref = (sorted(x, key=lambda r: tuple(map(repr, r.values()))) for x in (got, ref))
+    assert len(got) > 0 and got == ref

@@ -204,13 +204,17 @@ def test_executor_matches_jax_engines(name, tables):
         "SELECT host AS g0, stddev(lat * 2) AS a0 FROM t GROUP BY g0",
         "SELECT host AS g0, approx_percentile_cont(lat + 1, 0.5) AS a0 FROM t GROUP BY g0",
         "SELECT host AS g0, sum(lat * 2) AS a0 FROM t GROUP BY g0",
-        "SELECT host AS g0, path AS g1 FROM t WHERE status >= 400 ORDER BY g0, g1 LIMIT 5",
+        # a WHERE the K3 program cannot express: each block filters on the host
+        "SELECT host AS g0, path AS g1 FROM t WHERE lower(host) = 'h0' ORDER BY g0, g1 LIMIT 5",
     ],
     ids=["stddev-over-expr", "percentile-over-expr", "agg-over-expr", "select"],
 )
 def test_outside_the_slice_takes_the_cpu_engine(sql, tables):
+    """An aggregate the device cannot fold is refused once, at plan time; a
+    select's WHERE is lowered per block, so each block counts."""
     got, routes = port_gpu(sql, tables)
-    assert routes["cpu_fallback"] == 1 and routes["device_cold"] == 0, routes
+    fallbacks = 1 if "GROUP BY" in sql else len(tables)
+    assert routes["cpu_fallback"] == fallbacks and routes["device_cold"] == 0, routes
     assert_rows(jax_cpu(sql, tables), got, sql, exact_minmax=False, ordered="LIMIT" in sql)
 
 
@@ -411,3 +415,60 @@ def test_nan_value_poisons_only_its_own_group(tables):
         assert {r["g0"] for r in ref if math.isnan(r["a0"])} == nan_groups
         finite = [r for r in ref if r["g0"] not in nan_groups]
         assert_rows(finite, [r for r in got if r["g0"] not in nan_groups], sql, exact_minmax=False)
+
+
+@pytest.mark.parametrize("where", ["status <> 200", "lat <> 50", "lat <= 50", "NOT (lat > 50)"])
+def test_nan_value_in_a_select(where, tables):
+    """One NaN lat in a block, through the select path: x <> 50 is true on
+    NaN and every ordered compare false (NOT (lat > 50) keeps it: NaN > 50
+    is false, not NULL), as in both CPU engines; the NaN shows only in its
+    own row."""
+    lat = tables[1]["lat"].to_pylist()
+    status = tables[1]["status"].to_pylist()
+    row = next(i for i, (v, s) in enumerate(zip(lat, status)) if v is not None and s == 301.0)
+    lat[row] = math.nan
+    poisoned = tables[1].set_column(tables[1].schema.get_field_index("lat"), "lat", pa.array(lat))
+    blocks = [tables[0], poisoned, tables[2]]
+    sql = f"SELECT status, lat, bytes FROM t WHERE {where}"
+    got, routes = port_gpu(sql, blocks)
+    assert routes["cpu_fallback"] == 0 and routes["device_cold"] == 3, routes
+    nan_rows = [r for r in got if r["lat"] is not None and math.isnan(r["lat"])]
+    kept = where in ("status <> 200", "lat <> 50", "NOT (lat > 50)")
+    assert nan_rows == ([{"status": 301.0, "lat": nan_rows[0]["lat"], "bytes": poisoned["bytes"][row].as_py()}]
+                        if kept else [])
+
+    def key(r):
+        return tuple(repr(r[k]) for k in sorted(r))
+
+    for ref in (jax_cpu(sql, blocks), port_cpu(sql, blocks)):
+        assert sorted(map(key, ref)) == sorted(map(key, got))
+
+
+ORDINAL_CASES = {
+    "aggregate": ("SELECT host AS g0, count(*) AS c0, sum(bytes) AS a0, avg(lat) AS a1 FROM t "
+                  "GROUP BY g0 ORDER BY {} DESC LIMIT 3", "a1"),
+    "select": ("SELECT host, path, status, bytes AS b FROM t WHERE status >= 400 "
+               "ORDER BY {} DESC, 2 LIMIT 20", "b"),
+}
+
+
+@pytest.mark.parametrize("engine", ["gpu", "cpu"])
+@pytest.mark.parametrize("name", list(ORDINAL_CASES))
+def test_order_by_ordinal_names_the_select_item(name, engine, tables):
+    """ORDER BY 4 sorts by the fourth select item, as ORDER BY its alias
+    does (DataFusion's rule); the JAX package sorts by the constant 4."""
+    text, alias = ORDINAL_CASES[name]
+    run = (lambda sql: port_gpu(sql, tables)[0]) if engine == "gpu" else (
+        lambda sql: port_cpu(sql, tables))
+    by_position, by_alias = run(text.format(4)), run(text.format(alias).replace(", 2", ", path"))
+    assert by_position == by_alias
+    assert [r[alias] for r in by_position] == sorted((r[alias] for r in by_position), reverse=True)
+
+
+@pytest.mark.parametrize("engine", ["gpu", "cpu"])
+def test_order_by_ordinal_out_of_range(engine, tables):
+    from parseable_tpu_torch.query.executor import ExecError
+
+    sql = "SELECT host, count(*) AS c FROM t GROUP BY host ORDER BY 3"
+    with pytest.raises(ExecError, match="position 3"):
+        port_gpu(sql, tables) if engine == "gpu" else port_cpu(sql, tables)
