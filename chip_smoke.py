@@ -7,7 +7,10 @@ Builds the hand-written kernels from `parseable_tpu_torch/csrc/`, holds
 every regime of each against its plain PyTorch version on the card (phase
 2; with the regimes side by side at the shapes where the rules switch, and
 the fold's front half, K3, bit for bit on programs that use every opcode
-over NaN, NULL, wrapping times and unaligned columns), writes an access-
+over NaN, NULL, f64 values next to their literals and wrapping times, on
+16-byte-aligned columns and on columns one element off), answers ROADMAP
+list 3's repaired repros on the "gpu" engine on the card and on the "cpu"
+engine (phase 9: the same rows, no block off the card), writes an access-
 log lake of 2^23 rows (8 one-minute Parquet files of 2^20 rows, the shape
 of `bench.py`'s "default" profile) through the port's own sync path, which
 also seeds the encoded-block cache (phase 3), and answers four GROUP BY
@@ -112,6 +115,66 @@ SELECT_QUERIES = {
     ),
 }
 BASE = datetime(2024, 5, 1, 0, 0, tzinfo=UTC)
+
+# ROADMAP list 3, items 1-4: wrong answers of the GPU engine that the port
+# repaired, as (item, case, WHERE or None, API time range or None) over
+# `list3_table`. Each must answer as the CPU engine does, in a select and
+# under a GROUP BY: on the card in phase 9, through the kernels' plain
+# versions in tests/test_torch_executor.py (which holds items 1-3 against
+# the JAX CPU engine too; item 4 rounds where the JAX package floors).
+LIST3_RANGE = ("2024-05-01T10:00:00.000700Z", "2024-05-01T10:10:00.000700Z")
+LIST3 = [
+    ("strings", "like-newline-inside", "message LIKE '%error%'", None),
+    ("strings", "like-newline-after", "message LIKE '%error'", None),
+    ("strings", "like-underscore-newline", "message LIKE 'a_b'", None),
+    ("strings", "regex-dollar-newline", "regexp_like(message, 'error$')", None),
+    ("strings", "regex-digit-arabic", "regexp_like(message, '\\d')", None),
+    ("f64", "eq-2^24+1", "bytes = 16777217", None),
+    ("f64", "gt-2^31", "bytes > 2147483648", None),
+    ("f64", "gt-250", "lat > 250", None),
+    ("f64", "gt-0", "lat > 0", None),
+    ("f64", "in", "lat IN (250, 12.3)", None),
+    ("null", "ne-null", "host != NULL", None),
+    ("null", "not-eq-null", "NOT (host = NULL)", None),
+    ("subms", "api-range", None, LIST3_RANGE),
+    ("subms", "ge-lt", f"p_timestamp >= '{LIST3_RANGE[0]}' AND p_timestamp < '{LIST3_RANGE[1]}'",
+     None),
+    ("subms", "gt-le", f"p_timestamp > '{LIST3_RANGE[0]}' AND p_timestamp <= '{LIST3_RANGE[1]}'",
+     None),
+    ("subms", "between", f"p_timestamp BETWEEN '{LIST3_RANGE[0]}' AND '{LIST3_RANGE[1]}'", None),
+    ("subms", "eq-and-not-eq", f"p_timestamp = '{LIST3_RANGE[0]}' OR NOT (p_timestamp = "
+     f"'{LIST3_RANGE[1]}') AND host = 'h1'", None),
+]
+
+
+def list3_table(pa):
+    """The rows of list 3's repros: messages with newlines and Arabic-Indic
+    digits, integers at 2^24 + 1 and past 2^31, f64 values next to 250 and
+    at 1e-46, NULL hosts, and ms times at and next to the sub-ms bounds."""
+    base = datetime(2024, 5, 1, 10, 0)
+    ms = [0, 1, 300_000, 600_000, 600_001, 2, 3, 599_999, 4, 5]
+    return pa.table({
+        "p_timestamp": pa.array([base + timedelta(milliseconds=m) for m in ms], pa.timestamp("ms")),
+        "message": pa.array(["foo\nerror at x", "error\n", "a\nb", "error: timeout", "\u0663\u0664",
+                             "ok", None, "error", "x", "err\nor"]),
+        "host": pa.array(["h0", "h1", None, "h0", "h1", "h2", "h0", "h1", "h2", None]),
+        "bytes": pa.array([16777216, 16777217, 2147483649, 2147483648, 5, 7, None, 16777217, 0, 1],
+                          pa.int64()),
+        "lat": pa.array([250.0, 250.00000001, 1e-46, 249.99999999, 12.3, 0.0, None,
+                         float("nan"), 250.0, -1e-46]),
+    })
+
+
+def list3_queries(where: str | None) -> list[str]:
+    """A select and a GROUP BY behind `where`."""
+    w = f" WHERE {where}" if where else ""
+    return [f"SELECT p_timestamp, host, message, bytes, lat FROM t{w}",
+            f"SELECT host AS g0, count(*) AS c0, count(lat) AS c1 FROM t{w} GROUP BY g0"]
+
+
+def list3_rows(rows: list[dict]) -> list[str]:
+    """Rows in an order and a form two engines' answers compare in."""
+    return sorted(repr(sorted(r.items())) for r in rows)
 
 
 def log(msg: str) -> None:
@@ -456,12 +519,20 @@ def rule_sweep(torch, G, timer, gen) -> None:
 K3_KERNELS = ("mask_ids", "stack_operands")
 
 
+# f64 values next to the f64 literals of `k3_programs`: 2^24 + 1 (not an
+# f32), values two f64 ulps and 1e-8 off 250, 1e-46 (an f32 0), NaN, -0.0
+F64_HAZARDS = (2.0**24 + 1, 2.0**24, 250.0, 250.00000001, 249.99999999, 250.0 + 2**-44,
+               1e-46, -1e-46, 0.0, -0.0, float("nan"), float("inf"), 2147483649.0, 12.3)
+
+
 def k3_block(torch, np, n: int, offset: int, rng) -> dict:
     """Every column kind of a K3 program on the card, each a view `offset`
-    elements into a larger buffer (aligned to its element size only): int8
-    codes over the whole signed range, int16 and int32 codes, f32 values
-    with NaN, +-inf, -0.0 and NULLs, int32 times out to +-2^31 (negative
-    ones among them) with NULLs, and a padding mask."""
+    elements into a larger buffer (offset 0: 16-byte aligned, the kernels'
+    vector variant where N is a multiple of 512; else aligned to its element
+    size only, their scalar variant): int8 codes over the whole signed
+    range, int16 and int32 codes, f32 values with NaN, +-inf, -0.0 and
+    NULLs, f64 values with `F64_HAZARDS` and NULLs, int32 times out to
+    +-2^31 (negative ones among them) with NULLs, and a padding mask."""
     f = (rng.standard_normal(n) * 100).astype(np.float32)
     u = rng.random(n)
     f[u < 0.05] = np.nan
@@ -471,12 +542,16 @@ def k3_block(torch, np, n: int, offset: int, rng) -> dict:
     t = rng.integers(-(2**31), 2**31, n, dtype=np.int64).astype(np.int32)
     t[: n // 2] = rng.integers(-200_000, 200_000, n // 2)
     t[:4] = [2**31 - 1, -(2**31), -1, 0]
+    d = rng.standard_normal(n) * 300
+    hazard = rng.random(n) < 0.4
+    d[hazard] = rng.choice(np.array(F64_HAZARDS), int(hazard.sum()))
     cols = {
         "c8": rng.integers(-128, 128, n).astype(np.int8),
         "c16": rng.integers(0, 1000, n).astype(np.int16),
         "c32": rng.integers(0, 5000, n).astype(np.int32),
-        "f": f, "t": t,
+        "f": f, "t": t, "d": d,
         "f__valid": rng.random(n) < 0.9, "t__valid": rng.random(n) < 0.95,
+        "d__valid": rng.random(n) < 0.9,
         "c16__valid": rng.random(n) < 0.8, "__rowmask": np.arange(n) < n - 37,
     }
     out = {}
@@ -499,8 +574,8 @@ def k3_programs(F, np, rng) -> list:
 
     def program(name, build):
         prog = F.Program()
-        slot = {c: prog.slot(c, f"{c}__valid" if c in ("f", "t", "c16") else None)
-                for c in ("c8", "c16", "c32", "f", "t")}
+        slot = {c: prog.slot(c, f"{c}__valid" if c in ("f", "t", "c16", "d") else None)
+                for c in ("c8", "c16", "c32", "f", "t", "d")}
         build(prog, slot)
         out.append((name, prog))
 
@@ -536,6 +611,19 @@ def k3_programs(F, np, rng) -> list:
         p.row(F.ROW_LIVE, s["c16"])
         p.row(F.ROW_LIVE, s["c32"], bool_out=True)
 
+    def nulls(p, s):  # NOT (NOT NULL OR (d > 250 AND NULL) OR (NULL AND f < 1e-46))
+        p.const(True, known=False)
+        p.not_()
+        p.cmp_f64(s["d"], ">", 250.0)
+        p.const(False, known=False)
+        p.and_()
+        p.or_()
+        p.const(True, known=False)
+        p.cmp_f64(s["f"], "<", 1e-46)
+        p.and_()
+        p.or_()
+        p.not_()
+
     for c in ("c8", "c16", "c32"):
         program(f"lut {c}", lambda p, s, c=c: p.lut(s[c], luts[c]))
     for op in F.CMP:
@@ -543,12 +631,22 @@ def k3_programs(F, np, rng) -> list:
             program(f"f32 {op} {v}", lambda p, s, op=op, v=v: p.cmp_f32(s["f"], op, v))
         for v in (-5, 0, 2**31 - 2, -(2**31) + 2):
             program(f"i32 {op} {v}", lambda p, s, op=op, v=v: p.cmp_i32(s["t"], op, v))
+        # f64 compares over the f64 column and over the f32 one (read as f64)
+        for v in (250.0, 2.0**24 + 1, 1e-46, 0.0, -0.0, float("nan"), 2147483648.0, 12.3):
+            program(f"f64 {op} {v}", lambda p, s, op=op, v=v: p.cmp_f64(s["d"], op, v))
+        for v in (250.00000001, 16777217.0, 1e-46, 1.5):
+            program(f"f64 over f32 {op} {v}", lambda p, s, op=op, v=v: p.cmp_f64(s["f"], op, v))
     items = [1.5, -0.0, float("inf"), float("nan")]
+    items64 = [250.0, 12.3, 2.0**24 + 1, 1e-46, float("nan"), -0.0]
     for neg in (False, True):
         program(f"in {neg}", lambda p, s, neg=neg: p.in_f32(s["f"], items, neg))
+        program(f"in f64 {neg}", lambda p, s, neg=neg: p.in_f64(s["d"], items64, neg))
+        program(f"in f64 over f32 {neg}", lambda p, s, neg=neg: p.in_f64(s["f"], items64, neg))
         program(f"null {neg}", lambda p, s, neg=neg: p.is_null(s["f"], neg))
         program(f"const {neg}", lambda p, s, neg=neg: p.const(neg))
+        program(f"const NULL {neg}", lambda p, s, neg=neg: p.const(neg, known=False))
     program("connectives", connectives)
+    program("NULL connectives", nulls)
     program("keys and rows", keys_and_rows)
     return out
 
@@ -603,11 +701,13 @@ def k3_bytes(F, kind: str, data: tuple) -> tuple[float, int]:
             read[t.data_ptr()] = t.numel() * t.element_size()
 
     if kind == "mask_ids":
+        compares = (F.LUT, F.CMP_F32, F.CMP_I32, F.IN_F32, F.NOT_IN_F32, F.CMP_F64, F.IN_F64,
+                    F.NOT_IN_F64)
         for op, slot, a, b, *_ in ins:
             values, valid = slots[slot] if slots else (None, None)
-            if op in (F.LUT, F.CMP_F32, F.CMP_I32, F.IN_F32, F.NOT_IN_F32, F.KEY_DICT, F.KEY_TIME):
+            if op in compares or (op in (F.KEY_DICT, F.KEY_TIME) and data[3]):
                 take(values)
-            if op in (F.LUT, F.CMP_F32, F.CMP_I32, F.IN_F32, F.NOT_IN_F32, F.IS_NULL, F.NOT_NULL):
+            if op in compares or op in (F.IS_NULL, F.NOT_NULL):
                 take(valid)
         out = n * (1 + (4 if data[3] else 0))
         return sum(read.values()) + out, n * max(1, len(ins))
@@ -675,23 +775,31 @@ def k3_case(torch, F, timer, kind: str, data: tuple, inputs: str) -> dict:
 
 def k3_hazards(torch, F, timer, seed: int) -> None:
     """Phase 2: K3a and K3b against their plain versions, bit for bit, on
-    every program of `k3_programs` over 2^20 + 3 rows whose columns sit one
-    element off their buffers' alignment; the keys-and-rows program timed."""
+    every program of `k3_programs` twice: over 2^20 rows of 16-byte-aligned
+    columns (the kernels' vector variant) and over 2^20 + 3 rows whose
+    columns sit one element off their buffers' alignment (their scalar
+    variant); the keys-and-rows program timed on the aligned block."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    n = N_BLOCK + 3
-    block = k3_block(torch, np, n, 1, rng)
     programs = k3_programs(F, np, rng)
-    for name, prog in programs:
-        data = k3_inputs(torch, prog, block, n)
-        k3_check(torch, F, "mask_ids", data, name)
-        if prog.n_frows + prog.n_brows:
-            mask, _ = F.mask_ids(*data[:3])
-            k3_check(torch, F, "stack_operands",
-                     (data[0], data[1], mask, prog.n_frows, prog.n_brows), name)
-    log(f"phase 2 K3 hazards: {len(programs)} programs exact on N={n}, unaligned views")
-    name, prog = programs[-1]
+    for n, offset in ((N_BLOCK, 0), (N_BLOCK + 3, 1)):
+        block = k3_block(torch, np, n, offset, rng)
+        vector = None
+        for name, prog in programs:
+            data = k3_inputs(torch, prog, block, n)
+            k3_check(torch, F, "mask_ids", data, name)
+            vector = F.vector_ok(n, [t for slot in data[1] for t in slot if t is not None])
+            if prog.n_frows + prog.n_brows:
+                mask, _ = F.mask_ids(*data[:3])
+                k3_check(torch, F, "stack_operands",
+                         (data[0], data[1], mask, prog.n_frows, prog.n_brows), name)
+        check(vector == (offset == 0), f"K3 variant on offset {offset}: vector {vector}")
+        log(f"phase 2 K3 hazards: {len(programs)} programs exact on N={n}, views {offset} "
+            f"element(s) off alignment ({'vector' if vector else 'scalar'} variant)")
+    n = N_BLOCK
+    block = k3_block(torch, np, n, 0, rng)
+    name, prog = next((nm, pg) for nm, pg in programs if nm == "keys and rows")
     data = k3_inputs(torch, prog, block, n)
     res = k3_case(torch, F, timer, "mask_ids", data, "hazards")
     log(f"phase 2 mask_ids {json.dumps(res)}")
@@ -1094,6 +1202,56 @@ def drive_main_path(p, device=None) -> tuple[dict, dict, dict, "K3Recorder"]:
     log(f"phase 4 launches on the main path: {launches}")
     log_residency(torch, "phase 4", on_card)
     return launches, shapes, inputs, k3
+
+
+def drive_list3(device=None) -> int:
+    """Phase 9: ROADMAP list 3's repros (`LIST3`) on the "gpu" engine (on
+    `device`, default the card) and the "cpu" engine: the same rows, and
+    every GPU block folded on the device. Returns the queries run."""
+    import os
+
+    import pyarrow as pa
+
+    from parseable_tpu_torch.ops.hotset import get_hotset
+    from parseable_tpu_torch.query.executor import QueryExecutor
+    from parseable_tpu_torch.query.executor_cuda import SOURCE_ID_META, GpuQueryExecutor
+    from parseable_tpu_torch.query.planner import TimeBounds, plan
+    from parseable_tpu_torch.query.sql import parse_sql
+    from parseable_tpu_torch.utils.timeutil import parse_rfc3339
+
+    table = list3_table(pa)
+    block = table.replace_schema_metadata({SOURCE_ID_META: b"list3"})
+    os.environ["P_TPU_ENC_CACHE"] = "0"
+    runs = 0
+    try:
+        for item, case, where, api_range in LIST3:
+            for sql in list3_queries(where):
+                answers = []
+                for engine in ("gpu", "cpu"):
+                    lp = plan(parse_sql(sql))
+                    if api_range:
+                        low, high = map(parse_rfc3339, api_range)
+                        lp.time_bounds = lp.time_bounds.intersect(TimeBounds(low, high))
+                    if engine == "gpu":
+                        get_hotset().clear()
+                        ex = GpuQueryExecutor(lp, device=device)
+                        out = ex.execute(iter([block]))
+                        r = ex.route_stats
+                        # (a select without a WHERE never touches the card)
+                        on_device = int(where is not None or "GROUP BY" in sql)
+                        check(r["cpu_fallback"] == 0 and r["device_cold"] == on_device,
+                              f"list 3 {item} {case}: routes {r}")
+                    else:
+                        out = QueryExecutor(lp).execute(iter([table]))
+                    answers.append(list3_rows(out.to_pylist()))
+                check(answers[0] == answers[1],
+                      f"list 3 {item} {case}: gpu {answers[0]} vs cpu {answers[1]} ({sql})")
+                runs += 1
+    finally:
+        os.environ.pop("P_TPU_ENC_CACHE", None)
+        get_hotset().clear()
+    log(f"phase 9 list 3: {len(LIST3)} repros, {runs} queries, gpu == cpu, cpu_fallback 0")
+    return runs
 
 
 def launch_counts(counts: tuple) -> dict:
@@ -1983,6 +2141,10 @@ def main() -> int:
     rule_sweep(torch, G, timer, gen)
     k3_hazards(torch, F, timer, args.seed)
     phase_done("2 regimes, edges, rules")
+
+    # -- phase 9: ROADMAP list 3's repaired wrong answers, on the card
+    drive_list3()
+    phase_done("9 list 3 repros")
 
     # -- phases 3, 4, 7 and 8: the lake, then the main path and the
     # statistics queries on it in every cache state, then the hot set under

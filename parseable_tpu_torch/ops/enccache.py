@@ -48,7 +48,7 @@ from typing import Any
 
 import numpy as np
 
-from parseable_tpu_torch.ops.device import EncodedBatch, EncodedColumn, pow2_block
+from parseable_tpu_torch.ops.device import EncodedBatch, EncodedColumn, f64_base, f64_name, pow2_block
 
 logger = logging.getLogger(__name__)
 
@@ -61,6 +61,10 @@ def _fname(source_id: bytes) -> str:
     return hashlib.sha1(source_id).hexdigest() + ".enc"
 
 
+# `_resolve`'s answers for an f64 copy that a column does without: it is
+# exact in f32, or it is read as dictionary codes or times
+_EXACT = object()
+_NOT_NEEDED = object()
 # sentinel telling the write-behind thread to exit (EncodedBlockCache.shutdown)
 _WRITER_STOP = object()
 # write-behind queue bound, and how long a producer waits for room
@@ -135,6 +139,7 @@ class EncodedBlockCache:
             columns=snap_cols,
             row_mask=enc.row_mask,
             time_origin_ms=enc.time_origin_ms,
+            exact_cols=set(enc.exact_cols),
         )
         with self._lock:
             if self._queue is None:
@@ -283,6 +288,14 @@ class EncodedBlockCache:
                 bufs.append(valid.tobytes())
             add_variant(name, var, *bufs)
             changed = True
+        for name in sorted(enc.exact_cols):
+            # the f64 copy a column exact in f32 does without: a marker with
+            # no buffer, so that a read that asks for it hits
+            if f64_name(name) not in columns:
+                add_variant(f64_name(name), {"kind": "f64", "dtype": "float64", "nbytes": [],
+                                             "all_valid": True, "dictionary": None,
+                                             "forced": False, "exact": True})
+                changed = True
         if not changed:
             return False
 
@@ -321,6 +334,25 @@ class EncodedBlockCache:
         if pick is None:
             pick = next((v for v in variants if v["kind"] == "dict" and not v.get("forced")), None)
         return pick
+
+    @classmethod
+    def _resolve(cls, columns: dict, name: str, dict_cols: set[str]):
+        """The variant a read of `name` takes, or None for a miss. For the
+        f64 copy of a column (`ops/device.py f64_name`): `_EXACT` where the
+        entry's marker says the column is exact in f32, `_NOT_NEEDED` where
+        the column is read as anything but numbers."""
+        base = f64_base(name)
+        if base is not None:
+            variants = columns.get(base)
+            pick = cls._pick(variants, base in dict_cols) if variants else None
+            if pick is None:
+                return None
+            if pick["kind"] != "num":
+                return _NOT_NEEDED
+            if any(v.get("exact") for v in columns.get(name, ())):
+                return _EXACT
+        variants = columns.get(name)
+        return cls._pick(variants, name in dict_cols) if variants else None
 
     def get(
         self,
@@ -370,13 +402,16 @@ class EncodedBlockCache:
         # resolve every needed variant from the header FIRST (a miss costs
         # zero payload I/O), then read each buffer with one contiguous read
         picks: dict[str, dict] = {}
+        exact: set[str] = set()
         for name in needed:
-            variants = hdr["columns"].get(name)
-            pick = self._pick(variants, name in dict_cols) if variants else None
+            pick = self._resolve(hdr["columns"], name, dict_cols)
             if pick is None:
                 self.misses += 1
                 return None
-            picks[name] = pick
+            if pick is _EXACT:
+                exact.add(f64_base(name))
+            elif pick is not _NOT_NEEDED:
+                picks[name] = pick
 
         def pread(offset: int, nbytes: int) -> bytes:
             fh.seek(payload_off + offset)
@@ -417,6 +452,7 @@ class EncodedBlockCache:
             columns=cols,
             row_mask=mask,
             time_origin_ms=int(hdr.get("time_origin_ms", 0)),
+            exact_cols=exact,
         )
     def can_serve(self, source_id: bytes, needed: set[str] | None, dict_cols: set[str]) -> bool:
         """Header-only check: would get() succeed? Lets the scan layer skip
@@ -432,16 +468,7 @@ class EncodedBlockCache:
         if meta is None:
             return False
         hdr = meta["header"]
-        for name in needed:
-            variants = hdr["columns"].get(name)
-            if not variants:
-                return False
-            if name in dict_cols:
-                if not any(v["kind"] == "dict" for v in variants):
-                    return False
-            elif not any(v["kind"] != "dict" or not v.get("forced") for v in variants):
-                return False
-        return True
+        return all(self._resolve(hdr["columns"], name, dict_cols) is not None for name in needed)
 
     # ------------------------------------------------------------- internals
 

@@ -21,21 +21,27 @@ Both interpret one PROGRAM, a small int32 array the host builds per block
   one (value, known) pair of SQL's three-valued logic:
   LUT (a: data byte offset of a bool LUT, b: its size, a power of two; the
   code is masked by size - 1), CMP_F32 / CMP_I32 (a: comparison, b: the f32
-  bits or the int32 literal), IN_F32 / NOT_IN_F32 (a: data byte offset of
-  f32 items, b: their count) — each (predicate & valid, valid) — and
-  IS_NULL / NOT_NULL / CONST (known 1); AND, OR and NOT combine pairs, NOT e
-  is (known & ~value, known). KEY_DICT (a: remap offset, b: its size, c:
+  bits or the int32 literal), CMP_F64 (a: comparison, b and c: the low and
+  high words of the f64 literal; the values, f32 or f64, compared as f64),
+  IN_F32 / NOT_IN_F32 and IN_F64 / NOT_IN_F64 (a: data byte offset of f32
+  or f64 items, b: their count; IN_F64 reads f32 or f64 values as f64) —
+  each (predicate & valid, valid) — IS_NULL / NOT_NULL (known 1) and
+  CONST (a: value, b: known; a NULL literal is known 0); AND, OR and NOT
+  combine pairs, NOT e is (known & ~value, known). KEY_DICT (a: remap offset, b: its size, c:
   capacity, d: stride) adds min(remap[code], cap - 1) * stride to the row's
   id; KEY_TIME (a: shift, b: bin ms, c: bin offset, d: capacity, e: stride)
   adds clamp(floor((ts + shift) / bin) + k_off, 0, cap - 1) * stride, in
   wrapping int32 arithmetic. The verdict is the value left on the stack;
 - operand rows, 4 words each: [row op, slot, flags, output row]: MASK,
   LIVE (mask & valid, & not NaN with NAN_AWARE), MASKED (x where live, else
-  0), VALUE (x); BOOL_OUT writes the bool matrix, else the f32 one;
+  0), VALUE (x); BOOL_OUT writes the bool matrix, else the f32 one. They
+  are packed MASK first, then by slot, so that K3b loads each column once
+  for all the rows that read it;
 - data: LUTs, remaps and IN-lists, each 16-byte aligned.
 
 A slot is one column of the block: its values (int8/int16/int32 codes or
-times, or f32) and its validity (bool, or None where the column has no
+times, f32, or the f64 copy of a column that is not exact in f32) and its
+validity (bool, or None where the column has no
 nulls). `slots` is the list of (values, valid) tensors, in the program's
 slot order.
 
@@ -45,6 +51,13 @@ kernel or raises `KernelError`. `LAUNCHES` counts kernel launches per
 wrapper. A program the kernels cannot hold (over MAX_STACK deep, more than
 MAX_INSTR instructions, MAX_OPS operand rows or MAX_SLOTS columns) raises
 `UnsupportedOnDevice` while it is built, on the host, before any launch.
+
+Each kernel thread takes RUN rows, in chunks of 4 consecutive rows that a
+warp reads and writes 128 rows at a time. Where N is a multiple of a
+warp's 32 * RUN rows and every slot and output lies on a 16-byte boundary
+(`vector_ok`; every block of the main path does) the kernels load and
+store a chunk at a time (16 bytes of a 4-byte column); otherwise they take
+their scalar variant, which gives the same bits.
 """
 
 from __future__ import annotations
@@ -71,12 +84,14 @@ MAX_OPS = 128  # csrc kMaxOps
 MAX_SLOTS = 16  # csrc kMaxSlots
 
 (LUT, CMP_F32, CMP_I32, IN_F32, NOT_IN_F32, IS_NULL, NOT_NULL, CONST,
- AND, OR, NOT, KEY_DICT, KEY_TIME) = range(1, 14)
+ AND, OR, NOT, KEY_DICT, KEY_TIME, CMP_F64, IN_F64, NOT_IN_F64) = range(1, 17)
 ROW_MASK, ROW_LIVE, ROW_MASKED, ROW_VALUE = range(1, 5)
 NAN_AWARE, BOOL_OUT = 1, 2
 CMP = {"=": 0, "!=": 1, "<": 2, "<=": 3, ">": 4, ">=": 5}
-DTYPES = {torch.int8: 0, torch.int16: 1, torch.int32: 2, torch.float32: 3}
-_LEAVES = (LUT, CMP_F32, CMP_I32, IN_F32, NOT_IN_F32, IS_NULL, NOT_NULL, CONST)
+DTYPES = {torch.int8: 0, torch.int16: 1, torch.int32: 2, torch.float32: 3, torch.float64: 4}
+_LEAVES = (LUT, CMP_F32, CMP_I32, IN_F32, NOT_IN_F32, IS_NULL, NOT_NULL, CONST,
+           CMP_F64, IN_F64, NOT_IN_F64)
+RUN = 16  # rows a kernel thread takes (csrc kRun)
 
 # kernel launches per wrapper (plain integers; reset by whoever measures)
 LAUNCHES = {"mask_ids": 0, "stack_operands": 0}
@@ -89,9 +104,9 @@ class UnsupportedOnDevice(Exception):
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     u64s, i32s = ctypes.POINTER(ctypes.c_ulonglong), ctypes.POINTER(ctypes.c_int)
-    lib.k3_mask_ids.argtypes = [p, u64s, u64s, i32s, i, ll, p, p, p]
+    lib.k3_mask_ids.argtypes = [p, u64s, u64s, i32s, i, ll, p, p, i, p]
     lib.k3_mask_ids.restype = i
-    lib.k3_stack_operands.argtypes = [p, u64s, u64s, i32s, i, ll, p, p, p, p]
+    lib.k3_stack_operands.argtypes = [p, u64s, u64s, i32s, i, ll, p, p, p, i, p]
     lib.k3_stack_operands.restype = i
 
 
@@ -158,15 +173,25 @@ class Program:
     def cmp_i32(self, slot: int, op: str, value: int) -> None:
         self._emit(CMP_I32, slot, CMP[op], int(value))
 
+    def cmp_f64(self, slot: int, op: str, value: float) -> None:
+        lo, hi = np.array([value], dtype=np.float64).view(np.int32)
+        self._emit(CMP_F64, slot, CMP[op], int(lo), int(hi))
+
     def in_f32(self, slot: int, items: Sequence[float], negated: bool) -> None:
         arr = np.asarray(items, dtype=np.float32)
         self._emit(NOT_IN_F32 if negated else IN_F32, slot, self._data_at(arr), len(arr))
 
+    def in_f64(self, slot: int, items: Sequence[float], negated: bool) -> None:
+        arr = np.asarray(items, dtype=np.float64)
+        self._emit(NOT_IN_F64 if negated else IN_F64, slot, self._data_at(arr), len(arr))
+
     def is_null(self, slot: int, negated: bool = False) -> None:
         self._emit(NOT_NULL if negated else IS_NULL, slot)
 
-    def const(self, value: bool) -> None:
-        self._emit(CONST, 0, int(bool(value)))
+    def const(self, value: bool, known: bool = True) -> None:
+        """A literal verdict; known=False is SQL's NULL (a comparison with a
+        NULL literal), which drops the row and stays NULL under NOT."""
+        self._emit(CONST, 0, int(bool(value) and known), int(bool(known)))
 
     # connectives
     def and_(self) -> None:
@@ -205,7 +230,8 @@ class Program:
     def pack(self) -> np.ndarray:
         """The program's int32 words (one verdict must be on the stack)."""
         require(self._depth == 1, f"a program leaves one verdict, not {self._depth}")
-        body = [w for ins in self._instr for w in ins] + [w for op in self._ops for w in op]
+        ops = sorted(self._ops, key=lambda o: (o[0] != ROW_MASK, o[1]))
+        body = [w for ins in self._instr for w in ins] + [w for op in ops for w in op]
         data_off = HEADER_WORDS + len(body)
         data_off += -data_off % 4
         words = np.zeros(data_off + len(self._data) // 4, dtype=np.int32)
@@ -272,10 +298,16 @@ def mask_ids_plain(
         elif op in (CMP_F32, CMP_I32):
             t = float(np.int32(b).view(np.float32)) if op == CMP_F32 else b
             stack.append((_compare(slots[slot][0], t, a) & valid(slot), valid(slot)))
-        elif op in (IN_F32, NOT_IN_F32):
-            items = _data(words, data_at + a, b, torch.float32)
-            hit = (slots[slot][0][:, None] == items[None, :]).any(dim=1)
-            if op == NOT_IN_F32:
+        elif op == CMP_F64:
+            t = float(np.array([b, c], dtype=np.int32).view(np.float64)[0])
+            x = slots[slot][0].to(torch.float64)
+            stack.append((_compare(x, t, a) & valid(slot), valid(slot)))
+        elif op in (IN_F32, NOT_IN_F32, IN_F64, NOT_IN_F64):
+            wide = op in (IN_F64, NOT_IN_F64)
+            items = _data(words, data_at + a, b, torch.float64 if wide else torch.float32)
+            x = slots[slot][0].to(torch.float64) if wide else slots[slot][0]
+            hit = (x[:, None] == items[None, :]).any(dim=1)
+            if op in (NOT_IN_F32, NOT_IN_F64):
                 hit = ~hit
             stack.append((hit & valid(slot), valid(slot)))
         elif op == IS_NULL:
@@ -283,7 +315,7 @@ def mask_ids_plain(
         elif op == NOT_NULL:
             stack.append((valid(slot), ones))
         elif op == CONST:
-            stack.append((torch.full((n,), bool(a), device=dev), ones))
+            stack.append((torch.full((n,), bool(a), device=dev), torch.full((n,), bool(b), device=dev)))
         elif op in (AND, OR):
             (bv, bk), (av, ak) = stack.pop(), stack.pop()
             if op == AND:
@@ -347,7 +379,7 @@ def _check_slots(slots: Sequence[tuple], n: int) -> list[torch.Tensor]:
     for values, valid in slots:
         if values is not None:
             require(values.dtype in DTYPES and values.dim() == 1 and values.shape[0] == n,
-                    "slot values must be int8/int16/int32/f32 [N]")
+                    "slot values must be int8/int16/int32/f32/f64 [N]")
             tensors.append(values)
         if valid is not None:
             require(valid.dtype == torch.bool and tuple(valid.shape) == (n,), "slot validity must be bool [N]")
@@ -372,6 +404,13 @@ def _check_program(program: torch.Tensor) -> None:
             "program must be int32 [words]")
 
 
+def vector_ok(n: int, tensors: Sequence[torch.Tensor]) -> bool:
+    """May the kernels take their vector variant: N a multiple of a warp's
+    32 * RUN rows and every tensor they read or write on a 16-byte
+    boundary?"""
+    return n % (32 * RUN) == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
 def mask_ids(
     program: torch.Tensor, slots: Sequence[tuple], n: int, *, with_ids: bool = True
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
@@ -387,11 +426,13 @@ def mask_ids(
     if n == 0:
         return mask, ids
     values, valid, dtypes = _slot_table(slots)
+    vec = vector_ok(n, [*tensors, mask, *([ids] if ids is not None else [])])
     lib = LIBRARY.load()
     with torch.cuda.device(program.device):
         err = lib.k3_mask_ids(
             program.data_ptr(), values, valid, dtypes, len(slots), n, mask.data_ptr(),
-            ids.data_ptr() if ids is not None else None, torch.cuda.current_stream().cuda_stream,
+            ids.data_ptr() if ids is not None else None, int(vec),
+            torch.cuda.current_stream().cuda_stream,
         )
     check(err, "mask_ids")
     LAUNCHES["mask_ids"] += 1
@@ -415,11 +456,12 @@ def stack_operands(
     if n == 0 or n_frows + n_brows == 0:
         return frows, brows
     values, valid, dtypes = _slot_table(slots)
+    vec = vector_ok(n, [*tensors, mask, frows, brows])
     lib = LIBRARY.load()
     with torch.cuda.device(mask.device):
         err = lib.k3_stack_operands(
             program.data_ptr(), values, valid, dtypes, len(slots), n, mask.data_ptr(),
-            frows.data_ptr(), brows.data_ptr(), torch.cuda.current_stream().cuda_stream,
+            frows.data_ptr(), brows.data_ptr(), int(vec), torch.cuda.current_stream().cuda_stream,
         )
     check(err, "stack_operands")
     LAUNCHES["stack_operands"] += 1

@@ -29,7 +29,7 @@ from parseable_tpu_torch.ops.hll_sketch import estimate, merge_registers, regist
 from parseable_tpu_torch.query import sql as S
 from parseable_tpu_torch.query.sketch import QuantileSketch
 from parseable_tpu_torch.query.planner import LogicalPlan
-from parseable_tpu_torch.utils.timeutil import parse_duration, parse_rfc3339
+from parseable_tpu_torch.utils.timeutil import parse_duration, parse_rfc3339, time_ticks
 
 class ExecError(ValueError):
     pass
@@ -87,8 +87,8 @@ def evaluate(e: S.Expr, table: pa.Table) -> Any:
         return pc.invert(mask) if e.negated else mask
     if isinstance(e, S.Between):
         arr = _arr(evaluate(e.expr, table), table)
-        lo = _coerce_scalar(evaluate(e.low, table), arr.type)
-        hi = _coerce_scalar(evaluate(e.high, table), arr.type)
+        lo = _coerce_scalar(evaluate(e.low, table), arr.type, ">=")
+        hi = _coerce_scalar(evaluate(e.high, table), arr.type, "<=")
         mask = pc.and_(pc.greater_equal(arr, lo), pc.less_equal(arr, hi))
         return pc.invert(mask) if e.negated else mask
     if isinstance(e, S.IsNull):
@@ -115,13 +115,35 @@ def _arr(v: Any, table: pa.Table) -> pa.Array:
     return pa.array([v] * table.num_rows)
 
 
-def _coerce_scalar(v: Any, t: pa.DataType) -> Any:
-    if pa.types.is_timestamp(t):
-        if isinstance(v, str):
-            return pa.scalar(parse_rfc3339(v).replace(tzinfo=None), type=t)
-        if isinstance(v, datetime):
-            return pa.scalar(v.replace(tzinfo=None) if v.tzinfo else v, type=t)
+# `_coerce_scalar`'s answer for a time literal that falls between two ticks
+# of the column under = or !=
+_BETWEEN_TICKS = object()
+_FLIP = {"<": ">", "<=": ">=", ">": "<", ">=": "<="}
+
+
+def _coerce_scalar(v: Any, t: pa.DataType, op: str) -> Any:
+    """A literal for `array op v` over an array of type `t`: a time literal
+    becomes a scalar of the array's unit, rounded up for >= and < and down
+    otherwise, so that the comparison stays exact (a sub-ms bound keeps the
+    row stamped in its millisecond); `_BETWEEN_TICKS` for = and != when no
+    value of the unit equals it."""
+    if pa.types.is_timestamp(t) and isinstance(v, (str, datetime)):
+        ticks = time_ticks(parse_rfc3339(v) if isinstance(v, str) else v, t.unit, op)
+        return _BETWEEN_TICKS if ticks is None else pa.scalar(ticks, type=t)
     return v
+
+
+def time_bounds_mask(col: pa.ChunkedArray | pa.Array, low: datetime | None,
+                     high: datetime | None) -> pa.ChunkedArray | pa.Array | None:
+    """col >= low AND col < high over a timestamp column (None for no
+    bound), the bounds rounded up to the column's unit."""
+    mask = None
+    if low is not None:
+        mask = pc.greater_equal(col, _coerce_scalar(low, col.type, ">="))
+    if high is not None:
+        m2 = pc.less(col, _coerce_scalar(high, col.type, "<"))
+        mask = m2 if mask is None else pc.and_(mask, m2)
+    return mask
 
 
 def _eval_binary(e: S.BinaryOp, table: pa.Table) -> Any:
@@ -157,9 +179,13 @@ def _eval_binary(e: S.BinaryOp, table: pa.Table) -> Any:
     b = _arr(rv, table) if rarr else rv
     # coerce scalar side for timestamp comparisons
     if larr and not rarr:
-        b = _coerce_scalar(b, a.type)
+        b = _coerce_scalar(b, a.type, op)
     if rarr and not larr:
-        a = _coerce_scalar(a, b.type)
+        a = _coerce_scalar(a, b.type, _FLIP.get(op, op))
+    if a is _BETWEEN_TICKS or b is _BETWEEN_TICKS:
+        # no time value equals the literal: = is false, != true (NULL stays NULL)
+        arr = a if larr else b
+        return pc.not_equal(arr, arr) if op == "=" else pc.equal(arr, arr)
     fns = {
         "+": pc.add,
         "-": pc.subtract,
@@ -904,14 +930,7 @@ class QueryExecutor:
         tb = self.plan.time_bounds
         if (tb.low is None and tb.high is None) or DEFAULT_TIMESTAMP_KEY not in table.column_names:
             return table
-        col = table.column(DEFAULT_TIMESTAMP_KEY)
-        mask = None
-        if tb.low is not None:
-            mask = pc.greater_equal(col, pa.scalar(tb.low.replace(tzinfo=None), type=col.type))
-        if tb.high is not None:
-            m2 = pc.less(col, pa.scalar(tb.high.replace(tzinfo=None), type=col.type))
-            mask = m2 if mask is None else pc.and_(mask, m2)
-        return table.filter(mask)
+        return table.filter(time_bounds_mask(table.column(DEFAULT_TIMESTAMP_KEY), tb.low, tb.high))
 
     def execute(self, tables: Iterator[pa.Table]) -> pa.Table:
         if self.plan.is_aggregate:

@@ -56,20 +56,22 @@ cache miss is not a route off the card.
 
 Precision: per-block reductions run in f32 (blocks <= 2^22 rows keep counts
 exact; sums carry ~1e-6 relative error against the CPU engine's f64);
-cross-epoch accumulation is f64 on the host. Time compares are exact at ms.
+cross-epoch accumulation is f64 on the host. WHERE compares are exact: a
+numeric column that f32 does not hold exactly ships an f64 copy for them,
+and time compares are exact at ms (a sub-ms literal or bound rounds the way
+that keeps the compare exact, as in the CPU engine).
 """
 from __future__ import annotations
 
 import copy
 import itertools
 import logging
-import re
 import threading
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass
 from dataclasses import field as dc_field
-from datetime import UTC, datetime, timedelta
+from datetime import UTC, datetime
 from typing import Any, Callable, Iterator
 
 import numpy as np
@@ -81,7 +83,7 @@ from parseable_tpu_torch.config import Options
 from parseable_tpu_torch.ops import fold_cuda as F
 from parseable_tpu_torch.ops import groupby_cuda, stats_cuda
 from parseable_tpu_torch.ops.fold_cuda import Program, UnsupportedOnDevice
-from parseable_tpu_torch.ops.device import EncodedBatch, EncodedColumn, encode_table
+from parseable_tpu_torch.ops.device import EncodedBatch, EncodedColumn, encode_table, f64_name
 from parseable_tpu_torch.ops.enccache import get_enccache
 from parseable_tpu_torch.ops.hll_sketch import HLL_M, luts_for_dictionary
 from parseable_tpu_torch.ops.hotset import HotEntry, get_hotset
@@ -91,9 +93,9 @@ from parseable_tpu_torch.query import sql as S
 from parseable_tpu_torch.query.executor import AggSpec, HashAggregator, QueryExecutor, _arr, evaluate
 from parseable_tpu_torch.query.planner import LogicalPlan, referenced_columns
 from parseable_tpu_torch.query.sketch import DEVICE_NB, QuantileSketch, hist_quantile
-from parseable_tpu_torch.query.stubs import SOURCE_ID_META, hot_key, is_stub
+from parseable_tpu_torch.query.stubs import SOURCE_ID_META, device_columns, hot_key, is_stub
 from parseable_tpu_torch.utils.devicecheck import require_device
-from parseable_tpu_torch.utils.timeutil import parse_duration, parse_rfc3339
+from parseable_tpu_torch.utils.timeutil import parse_duration, parse_rfc3339, time_ticks
 
 logger = logging.getLogger(__name__)
 
@@ -222,27 +224,6 @@ class KeySpec:
     origin_rel: int | None = None  # timebin only: origin *bin index*
 
 
-def _like_to_regex(pattern: str) -> str:
-    out = []
-    i = 0
-    while i < len(pattern):
-        ch = pattern[i]
-        if ch == "\\" and i + 1 < len(pattern) and pattern[i + 1] in ("%", "_", "\\"):
-            # backslash-escaped wildcard is a literal (matches Arrow's
-            # pc.match_like semantics on the CPU path)
-            out.append(re.escape(pattern[i + 1]))
-            i += 2
-            continue
-        if ch == "%":
-            out.append(".*")
-        elif ch == "_":
-            out.append(".")
-        else:
-            out.append(re.escape(ch))
-        i += 1
-    return "^" + "".join(out) + "$"
-
-
 def _interval_ms(e: S.Expr) -> int | None:
     if isinstance(e, S.IntervalLit):
         return int(parse_duration(e.text).total_seconds() * 1000)
@@ -296,10 +277,12 @@ class PredicateCompiler:
     (`ops/fold_cuda.py Program`), on the host: string predicates evaluate
     over the *batch* dictionary into boolean LUTs padded to pow2 (cached on
     the EncodedBatch), time literals become block-relative ms, numeric
-    literals f32. Each node pushes one (value, known) pair of SQL's
-    three-valued logic, so that NOT e is (known & ~value, known): a NOT over
-    a NULL operand drops the row. A node the program cannot express raises
-    UnsupportedOnDevice here, before any launch."""
+    compares f32 where the column and the literal are exact in f32 and f64
+    otherwise (`_num_slot`), a compare with NULL an unknown constant. Each
+    node pushes one (value, known) pair of SQL's three-valued logic, so
+    that NOT e is (known & ~value, known): a NOT over a NULL operand drops
+    the row. A node the program cannot express raises UnsupportedOnDevice
+    here, before any launch."""
 
     def lower(self, e: S.Expr | None, enc: EncodedBatch, prog: Program) -> None:
         """Emit `e`'s instructions: one verdict more on the program's stack
@@ -322,9 +305,9 @@ class PredicateCompiler:
             if e.op in ("like", "ilike", "not_like", "not_ilike"):
                 # a negated LIKE is negated in the LUT; the leaf ANDs valid
                 col = self._column_of(e.left, enc)
-                raw = str(self._literal_of(e.right))
-                flags = re.IGNORECASE if "ilike" in e.op else 0
-                lut = self._regex_lut(enc, col, _like_to_regex(raw), flags, e.op.startswith("not_"))
+                pattern = str(self._literal_of(e.right))
+                lut = self._string_lut(enc, col, "ilike" if "ilike" in e.op else "like", pattern,
+                                       e.op.startswith("not_"))
                 prog.lut(_slot(prog, col), lut)
                 return
         if isinstance(e, S.UnaryOp) and e.op == "not":
@@ -344,7 +327,9 @@ class PredicateCompiler:
             if col.kind == "dict":
                 prog.lut(_slot(prog, col), self._in_lut(enc, e, col))
             elif col.kind in ("num", "bool"):
-                prog.in_f32(_slot(prog, col), [_f32(self._number(i)) for i in e.items], e.negated)
+                items = [self._number(i) for i in e.items]
+                slot, wide = _num_slot(prog, enc, col, items)
+                (prog.in_f64 if wide else prog.in_f32)(slot, items, e.negated)
             else:
                 raise UnsupportedOnDevice("IN on unsupported column kind")
             return
@@ -353,7 +338,8 @@ class PredicateCompiler:
             return
         if isinstance(e, S.FunctionCall) and e.name in ("regexp_match", "regexp_like"):
             col = self._column_of(e.args[0], enc)
-            prog.lut(_slot(prog, col), self._regex_lut(enc, col, str(self._literal_of(e.args[1])), 0, False))
+            lut = self._string_lut(enc, col, "regex", str(self._literal_of(e.args[1])), False)
+            prog.lut(_slot(prog, col), lut)
             return
         if isinstance(e, S.Literal) and isinstance(e.value, bool):
             prog.const(e.value)
@@ -362,16 +348,25 @@ class PredicateCompiler:
 
     def _lower_cmp(self, e: S.BinaryOp, enc: EncodedBatch, prog: Program) -> None:
         col, op, lit = self._cmp_parts(e, enc)
-        if col.kind == "dict":
+        if lit is None:
+            # a comparison with NULL is NULL on every row
+            prog.const(False, known=False)
+        elif col.kind == "dict":
             prog.lut(_slot(prog, col), self._dict_lut(enc, col, op, lit))
         elif col.kind == "time":
-            # values are exact int32 ms rel to the block origin, so every
-            # comparison op (incl. sub-second literals) is exact
-            prog.cmp_i32(_slot(prog, col), op, self._time_lit(enc, op, lit))
+            # values are exact int32 ms rel to the block origin; a literal
+            # between two ms rounds to the one that keeps the compare exact
+            rel = self._time_lit(enc, op, lit)
+            if rel is None:  # no ms value equals it: = is false, != true
+                prog.cmp_i32(_slot(prog, col), "<" if op == "=" else ">=", -(2**31))
+            else:
+                prog.cmp_i32(_slot(prog, col), op, rel)
         elif col.kind in ("num", "bool"):
-            if not isinstance(lit, (int, float, bool)):
+            if not isinstance(lit, (int, float)):
                 raise UnsupportedOnDevice("numeric compared to non-numeric literal")
-            prog.cmp_f32(_slot(prog, col), op, _f32(lit))
+            value = _f64(lit)
+            slot, wide = _num_slot(prog, enc, col, [value])
+            (prog.cmp_f64 if wide else prog.cmp_f32)(slot, op, value)
         else:
             raise UnsupportedOnDevice(f"cannot compare column kind {col.kind}")
 
@@ -404,24 +399,28 @@ class PredicateCompiler:
         return self._column_of(e.right, enc), flip.get(e.op, e.op), self._literal_of(e.left)
 
     @staticmethod
-    def _time_lit(enc: EncodedBatch, op: str, lit: Any) -> int:
-        """Literal as block-relative int ms. Sub-ms literals FLOOR to ms,
-        matching the CPU engine's coercion; out-of-range literals clamp to
-        just inside int32, so they compare uniformly against every row."""
-        del op  # same floor for every comparison op (CPU-engine parity)
+    def _time_lit(enc: EncodedBatch, op: str, lit: Any) -> int | None:
+        """Literal as block-relative int ms for `column op lit`, rounded as
+        the CPU engine rounds it (`utils/timeutil.time_ticks`): up for >=
+        and <, down for > and <=; None for = and != when it falls between
+        two ms. Out-of-range literals clamp to just inside int32, so they
+        compare uniformly against every row."""
         if isinstance(lit, str):
             lit_dt = parse_rfc3339(lit)
         elif isinstance(lit, datetime):
-            lit_dt = lit if lit.tzinfo else lit.replace(tzinfo=UTC)
+            lit_dt = lit
         else:
             raise UnsupportedOnDevice("timestamp compared to non-time literal")
-        rel = _dt_to_us(lit_dt) // 1000 - enc.time_origin_ms
-        return max(-(2**31) + 2, min(2**31 - 2, rel))
+        ms = time_ticks(lit_dt, "ms", op)
+        if ms is None:
+            return None
+        return max(-(2**31) + 2, min(2**31 - 2, ms - enc.time_origin_ms))
 
     def _number(self, e: S.Expr) -> float:
-        """A numeric IN-list item (a literal the f32 compare can take)."""
+        """A numeric IN-list item, as f64."""
+        v = self._literal_of(e)
         try:
-            return float(self._literal_of(e))
+            return _f64(v if isinstance(v, (int, float)) else float(v))
         except (TypeError, ValueError):
             raise UnsupportedOnDevice("numeric IN-list item is not a number") from None
 
@@ -468,23 +467,38 @@ class PredicateCompiler:
         cache[key] = lut
         return lut
 
-    def _regex_lut(
-        self, enc: EncodedBatch, col: EncodedColumn, pattern: str, flags: int, negate: bool
+    def _string_lut(
+        self, enc: EncodedBatch, col: EncodedColumn, kind: str, pattern: str, negate: bool
     ) -> np.ndarray:
+        """LIKE / ILIKE / regexp_like over the batch dictionary, through the
+        very pyarrow functions the CPU engine calls (`pc.match_like`,
+        `pc.match_substring_regex`), so the two engines agree on every
+        value, newlines and non-ASCII digits included."""
         if col.kind != "dict":
             raise UnsupportedOnDevice("string predicate on non-string column")
         cache = self._batch_cache(enc)
-        key = (col.name, pattern, flags, negate)
+        key = (col.name, kind, pattern, negate)
         hit = cache.get(key)
         if hit is not None:
             return hit
-        rx = re.compile(pattern, flags)
         values = col.dictionary[:-1]
-        lut = np.zeros(len(values) + 1, dtype=bool)
-        for i, v in enumerate(values):
-            if isinstance(v, str):
-                m = rx.search(v) is not None
-                lut[i] = (not m) if negate else m
+        lut = np.zeros(len(values) + 1, dtype=bool)  # +1 null slot -> False
+        if values:
+            import pyarrow.compute as pc
+
+            try:
+                arr = pa.array(values, pa.string())
+                if kind == "regex":
+                    match = pc.match_substring_regex(arr, pattern)
+                else:
+                    match = pc.match_like(arr, pattern, ignore_case=kind == "ilike")
+            except (pa.ArrowInvalid, pa.ArrowTypeError, pa.ArrowNotImplementedError) as e:
+                # a numeric dictionary, or a pattern Arrow refuses: the CPU
+                # engine answers (or raises) for this block
+                raise UnsupportedOnDevice(f"string predicate: {e}") from None
+            if negate:
+                match = pc.invert(match)
+            lut[:-1] = match.fill_null(False).to_numpy(zero_copy_only=False)
         lut = self._padded(lut)
         cache[key] = lut
         return lut
@@ -506,19 +520,32 @@ class PredicateCompiler:
         return lut
 
 
-_EPOCH_UTC = datetime(1970, 1, 1, tzinfo=UTC)
+def _f64(v: int | float) -> float:
+    """A numeric literal as f64; an integer f64 cannot hold exactly declines
+    (the CPU engine compares it exactly)."""
+    if isinstance(v, int) and not isinstance(v, bool) and abs(v) > 2**53:
+        raise UnsupportedOnDevice(f"integer literal {v} is not exact in f64")
+    return float(v)
 
 
-def _dt_to_us(dt: datetime) -> int:
-    """Exact integer epoch-microseconds (float .timestamp() wobbles at
-    2024-era magnitudes; datetime precision is exactly us)."""
-    return (dt - _EPOCH_UTC) // timedelta(microseconds=1)
+def _exact_f32(v: float) -> bool:
+    with np.errstate(over="ignore"):
+        return float(np.float32(v)) == v or v != v
 
 
-def _f32(v: Any) -> float:
-    """A numeric literal rounded to f32, so comparing it with f32 column
-    values gives what the f32 compare of the JAX package gives."""
-    return float(np.float32(float(v)))
+def _num_slot(prog: Program, enc: EncodedBatch, col: EncodedColumn, literals: list[float]
+              ) -> tuple[int, bool]:
+    """(slot, compare in f64?) for a compare or IN of a numeric column with
+    `literals`. Where the column's values and the literals are all exact in
+    f32, the f32 compare is the exact one; where only the values are, the
+    f32 values compare as f64; otherwise the column's f64 copy does (a block
+    encoded without it declines)."""
+    if col.kind == "bool" or col.name in enc.exact_cols:
+        return _slot(prog, col), not all(map(_exact_f32, literals))
+    wide = enc.columns.get(f64_name(col.name))
+    if wide is None:
+        raise UnsupportedOnDevice(f"{col.name} is not exact in f32 and has no f64 copy")
+    return _slot(prog, wide), True
 
 
 def _slot(prog: Program, col: EncodedColumn) -> int:
@@ -863,6 +890,7 @@ _TORCH_DTYPES = {
     np.dtype(np.int16): torch.int16,
     np.dtype(np.int32): torch.int32,
     np.dtype(np.float32): torch.float32,
+    np.dtype(np.float64): torch.float64,
 }
 
 
@@ -1163,6 +1191,7 @@ class GpuQueryExecutor(QueryExecutor):
         needed = referenced_columns(sel.where)
         if self.plan.needed_columns is None or DEFAULT_TIMESTAMP_KEY in self.plan.needed_columns:
             needed.add(DEFAULT_TIMESTAMP_KEY)  # the JAX package's set, where the scan reads it
+        needed = device_columns(needed, sel.where)
         compiler = PredicateCompiler()
 
         def filtered() -> Iterator[pa.Table]:
@@ -1246,7 +1275,7 @@ class GpuQueryExecutor(QueryExecutor):
         compiler = PredicateCompiler()
         dict_cols = {ks.column for ks in key_specs if ks.kind == "dict"}
         dict_cols |= {dk.column for dk in dkeys}
-        needed = self.plan.needed_columns
+        needed = device_columns(self.plan.needed_columns, sel.where)
         bounds_ms = self._bounds_ms()
 
         acc: torch.Tensor | None = None  # device-resident packed accumulator (R, G)
@@ -1516,17 +1545,11 @@ class GpuQueryExecutor(QueryExecutor):
     # ------------------------------------------------------------- internals
 
     def _bounds_ms(self) -> tuple[int | None, int | None]:
-        """API time bounds as absolute epoch ms, FLOORED for sub-ms bounds,
-        as the CPU engine's _bounds_filter coerces them."""
+        """The time bounds [low, high) as absolute epoch ms, a sub-ms bound
+        rounded UP (ts >= low and ts < high are then exact on ms values),
+        as the CPU engine's `_bounds_filter` rounds them."""
         tb = self.plan.time_bounds
-        out = []
-        for b in (tb.low, tb.high):
-            if b is None:
-                out.append(None)
-                continue
-            bb = b if b.tzinfo else b.replace(tzinfo=UTC)
-            out.append(_dt_to_us(bb) // 1000)
-        return tuple(out)
+        return tuple(None if b is None else time_ticks(b, "ms", ">=") for b in (tb.low, tb.high))
 
     @staticmethod
     def _time_args(

@@ -42,6 +42,12 @@ def _as_datetime(v) -> datetime | None:
     return None
 
 
+def _next_ms(dt: datetime) -> datetime:
+    """The millisecond after the one `dt` falls in: ts > dt and ts <= dt are
+    ts >= _next_ms(dt) and ts < _next_ms(dt) on ms values, sub-ms dt too."""
+    return dt - timedelta(microseconds=dt.microsecond % 1000) + timedelta(milliseconds=1)
+
+
 def extract_time_bounds(where: S.Expr | None, time_col: str = DEFAULT_TIMESTAMP_KEY) -> TimeBounds:
     """Pull conjunctive p_timestamp bounds out of a WHERE expression.
 
@@ -65,7 +71,7 @@ def extract_time_bounds(where: S.Expr | None, time_col: str = DEFAULT_TIMESTAMP_
                 if lo:
                     bounds = bounds.intersect(TimeBounds(low=lo))
                 if hi:
-                    bounds = bounds.intersect(TimeBounds(high=hi + timedelta(milliseconds=1)))
+                    bounds = bounds.intersect(TimeBounds(high=_next_ms(hi)))
             return
         if isinstance(e, S.BinaryOp) and e.op in ("<", "<=", ">", ">=", "="):
             left_col = _col_name(e.left)
@@ -75,31 +81,32 @@ def extract_time_bounds(where: S.Expr | None, time_col: str = DEFAULT_TIMESTAMP_
                 if dt is None:
                     return
                 # bounds are [low, high) at millisecond resolution, so the
-                # strict ops need a 1 ms nudge to stay exclusive/inclusive.
+                # strict ops need a nudge to the next ms to stay
+                # exclusive/inclusive (sub-ms bounds round up when applied).
                 if e.op == ">":
-                    bounds = bounds.intersect(TimeBounds(low=dt + timedelta(milliseconds=1)))
+                    bounds = bounds.intersect(TimeBounds(low=_next_ms(dt)))
                 elif e.op == ">=":
                     bounds = bounds.intersect(TimeBounds(low=dt))
                 elif e.op == "<":
                     bounds = bounds.intersect(TimeBounds(high=dt))
                 elif e.op == "<=":
-                    bounds = bounds.intersect(TimeBounds(high=dt + timedelta(milliseconds=1)))
+                    bounds = bounds.intersect(TimeBounds(high=_next_ms(dt)))
                 else:  # =
-                    bounds = bounds.intersect(TimeBounds(low=dt, high=dt + timedelta(milliseconds=1)))
+                    bounds = bounds.intersect(TimeBounds(low=dt, high=_next_ms(dt)))
             elif right_col == time_col and left_col is None:
                 dt = _literal_dt(e.left)
                 if dt is None:
                     return
                 if e.op == "<":  # dt < ts  ==  ts > dt
-                    bounds = bounds.intersect(TimeBounds(low=dt + timedelta(milliseconds=1)))
+                    bounds = bounds.intersect(TimeBounds(low=_next_ms(dt)))
                 elif e.op == "<=":
                     bounds = bounds.intersect(TimeBounds(low=dt))
                 elif e.op == ">":  # dt > ts  ==  ts < dt
                     bounds = bounds.intersect(TimeBounds(high=dt))
                 elif e.op == ">=":
-                    bounds = bounds.intersect(TimeBounds(high=dt + timedelta(milliseconds=1)))
+                    bounds = bounds.intersect(TimeBounds(high=_next_ms(dt)))
                 else:  # =
-                    bounds = bounds.intersect(TimeBounds(low=dt, high=dt + timedelta(milliseconds=1)))
+                    bounds = bounds.intersect(TimeBounds(low=dt, high=_next_ms(dt)))
 
     visit(where)
     return bounds

@@ -36,7 +36,6 @@ from datetime import UTC, datetime, timedelta
 from typing import Iterator
 
 import pyarrow as pa
-import pyarrow.compute as pc
 import pyarrow.parquet as pq
 
 from parseable_tpu_torch import DEFAULT_TIMESTAMP_KEY, LOCAL_SYNC_INTERVAL
@@ -44,8 +43,15 @@ from parseable_tpu_torch.catalog import ManifestFile, Snapshot
 from parseable_tpu_torch.core import Parseable
 from parseable_tpu_torch.ops.enccache import get_enccache
 from parseable_tpu_torch.ops.hotset import get_hotset
+from parseable_tpu_torch.query.executor import time_bounds_mask
 from parseable_tpu_torch.query.planner import LogicalPlan, prune_file
-from parseable_tpu_torch.query.stubs import SOURCE_ID_META, dict_group_columns, hot_key, make_stub
+from parseable_tpu_torch.query.stubs import (
+    SOURCE_ID_META,
+    device_columns,
+    dict_group_columns,
+    hot_key,
+    make_stub,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -237,14 +243,7 @@ class StreamScan:
         tb = self.plan.time_bounds
         if (tb.low is None and tb.high is None) or DEFAULT_TIMESTAMP_KEY not in table.column_names:
             return table
-        col = table.column(DEFAULT_TIMESTAMP_KEY)
-        mask = None
-        if tb.low is not None:
-            mask = pc.greater_equal(col, pa.scalar(tb.low.replace(tzinfo=None), type=col.type))
-        if tb.high is not None:
-            m2 = pc.less(col, pa.scalar(tb.high.replace(tzinfo=None), type=col.type))
-            mask = m2 if mask is None else pc.and_(mask, m2)
-        return table.filter(mask)
+        return table.filter(time_bounds_mask(table.column(DEFAULT_TIMESTAMP_KEY), tb.low, tb.high))
 
     def tables(self) -> Iterator[pa.Table]:
         """The staging window's tables (row-filtered to the time range, no
@@ -262,7 +261,7 @@ class StreamScan:
         if self.use_hot_stubs:
             hotset = get_hotset()
             enccache = get_enccache(self.p.options)
-            needed = self.plan.needed_columns
+            needed = device_columns(self.plan.needed_columns, self.plan.select.where)
             dict_cols = dict_group_columns(self.plan.select)
         to_fetch: list[tuple[ManifestFile, bytes]] = []
         stubs: list[tuple[bytes, int]] = []

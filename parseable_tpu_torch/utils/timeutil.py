@@ -81,6 +81,28 @@ def parse_rfc3339(text: str) -> datetime:
     return dt.astimezone(UTC)
 
 
+_EPOCH = datetime(1970, 1, 1, tzinfo=UTC)
+_TICK_US = {"s": 1_000_000, "ms": 1000, "us": 1}
+
+
+def time_ticks(dt: datetime, unit: str, op: str) -> int | None:
+    """`dt` (naive = UTC) in ticks of `unit` ("s", "ms", "us", "ns") for
+    the comparison `column op dt` over a column of that unit: rounded up
+    for >= and < and down for > and <=, so that comparing ticks is exact;
+    None for = and != when dt falls between two ticks (no value equals
+    it)."""
+    us = ((dt if dt.tzinfo else dt.replace(tzinfo=UTC)) - _EPOCH) // timedelta(microseconds=1)
+    if unit == "ns":
+        return us * 1000
+    ticks, rest = divmod(us, _TICK_US[unit])
+    if rest:
+        if op in ("=", "!="):
+            return None
+        if op in (">=", "<"):
+            ticks += 1
+    return ticks
+
+
 def truncate_to_minute(dt: datetime) -> datetime:
     return dt.replace(second=0, microsecond=0)
 

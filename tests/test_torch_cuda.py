@@ -698,16 +698,19 @@ def _k3_run(prog, block):
     return words, words_cuda, slots, cpu_slots
 
 
-@pytest.mark.parametrize("n,offset", [(1 << 16, 0), (70_001, 1), (70_001, 3)])
+@pytest.mark.parametrize("n,offset", [(1 << 16, 0), (1 << 16, 2), (70_001, 1), (70_001, 3)])
 def test_cuda_k3_matches_plain(cuda, n, offset):
     """K3a and K3b against their plain versions, bit for bit, over every
-    opcode and hazard: IEEE compares on NaN, floor division and wrapping
-    int32 adds of the time key, sign-extended int8 codes, NULLs under
-    three-valued connectives, odd block sizes, views aligned to their
-    element size only."""
+    opcode and hazard: IEEE compares on NaN, f64 compares next to their
+    literals, floor division and wrapping int32 adds of the time key,
+    sign-extended int8 codes, NULLs and NULL literals under three-valued
+    connectives; in the kernels' 16-byte variant (offset 0) and in their
+    scalar one (odd block sizes, views aligned to their element size
+    only)."""
     from parseable_tpu_torch.ops import fold_cuda as F
 
     block = _k3_block(n, offset)
+    assert F.vector_ok(n, list(block.values())) == (offset == 0)
     for name, prog in _k3_programs():
         words, words_cuda, slots, cpu_slots = _k3_run(prog, block)
         before = dict(F.LAUNCHES)

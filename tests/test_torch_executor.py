@@ -27,6 +27,7 @@ import pyarrow as pa
 import pyarrow.compute as pc
 import pytest
 
+import chip_smoke
 from parseable_tpu.config import Options as JaxOptions
 from parseable_tpu.query.executor import QueryExecutor as JaxCpuExecutor
 from parseable_tpu.query.executor_tpu import TpuQueryExecutor
@@ -472,3 +473,102 @@ def test_order_by_ordinal_out_of_range(engine, tables):
     sql = "SELECT host, count(*) AS c FROM t GROUP BY host ORDER BY 3"
     with pytest.raises(ExecError, match="position 3"):
         port_gpu(sql, tables) if engine == "gpu" else port_cpu(sql, tables)
+
+
+# ---------------------------------------- ROADMAP list 3: repaired answers
+
+
+def list3_run(engine: str, sql: str, api_range) -> list[str]:
+    """One of list 3's queries over chip_smoke's `list3_table` on the
+    port's "gpu" engine (plain versions; every block on the device path)
+    or "cpu" engine, or the JAX CPU engine, with the API time range where
+    the case has one."""
+    from parseable_tpu_torch.query.planner import TimeBounds
+    from parseable_tpu_torch.utils.timeutil import parse_rfc3339
+
+    table = chip_smoke.list3_table(pa)
+    if engine == "jax_cpu":
+        return chip_smoke.list3_rows(jax_cpu(sql, [table]))
+    lp = port_plan(port_parse(sql))
+    if api_range:
+        lp.time_bounds = lp.time_bounds.intersect(TimeBounds(*map(parse_rfc3339, api_range)))
+    if engine == "port_cpu":
+        return chip_smoke.list3_rows(PortCpuExecutor(lp).execute(iter([table])).to_pylist())
+    get_hotset().clear()
+    block = table.replace_schema_metadata({X.SOURCE_ID_META: b"list3"})
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("P_TPU_ENC_CACHE", "0")
+        ex = X.GpuQueryExecutor(lp, device="cpu")
+        rows = ex.execute(iter([block])).to_pylist()
+    assert ex.route_stats["cpu_fallback"] == 0, ex.route_stats
+    return chip_smoke.list3_rows(rows)
+
+
+def list3_cases(item: str) -> list:
+    return [pytest.param(where, api_range, id=case)
+            for it, case, where, api_range in chip_smoke.LIST3 if it == item]
+
+
+def hold_list3(where, api_range, with_jax: bool) -> None:
+    for sql in chip_smoke.list3_queries(where):
+        got = list3_run("port_gpu", sql, api_range)
+        assert got == list3_run("port_cpu", sql, api_range), sql
+        if with_jax:
+            assert got == list3_run("jax_cpu", sql, api_range), sql
+
+
+@pytest.mark.parametrize("where,api_range", list3_cases("strings"))
+def test_string_predicates_match_arrow_on_every_value(where, api_range):
+    """LIKE and regexp_like LUTs come from the CPU engine's own pyarrow
+    calls: newlines inside and after a match, '_' over a newline, '$'
+    before a trailing newline and \\d on Arabic-Indic digits answer as on
+    the CPU engines."""
+    hold_list3(where, api_range, with_jax=True)
+
+
+@pytest.mark.parametrize("where,api_range", list3_cases("f64"))
+def test_numeric_compares_are_exact_past_f32(where, api_range):
+    """A compare or IN over a column whose values f32 does not hold (2^24 +
+    1, 2^31 + 1, 250.00000001, 1e-46) reads the column's f64 copy: the
+    rows are the CPU engines'."""
+    hold_list3(where, api_range, with_jax=True)
+
+
+@pytest.mark.parametrize("where,api_range", list3_cases("null"))
+def test_compare_with_a_null_literal_keeps_no_row(where, api_range):
+    """host != NULL and NOT (host = NULL) are NULL on every row."""
+    hold_list3(where, api_range, with_jax=True)
+    assert list3_run("port_gpu", chip_smoke.list3_queries(where)[0], api_range) == []
+
+
+# rows (ms after 10:00) that each sub-ms case keeps: 10:00:00.000 (0) and
+# 10:10:00.001 (600,001) fall outside [10:00:00.0007, 10:10:00.0007]
+SUBMS_KEPT = {
+    "api-range": [1, 2, 3, 4, 5, 300_000, 599_999, 600_000],
+    "ge-lt": [1, 2, 3, 4, 5, 300_000, 599_999, 600_000],
+    "gt-le": [1, 2, 3, 4, 5, 300_000, 599_999, 600_000],
+    "between": [1, 2, 3, 4, 5, 300_000, 599_999, 600_000],
+    "eq-and-not-eq": [1, 599_999, 600_001],  # no ms equals a sub-ms literal
+}
+
+
+@pytest.mark.parametrize("where,api_range", list3_cases("subms"))
+def test_sub_ms_time_bounds_round_up(where, api_range, request):
+    """A bound or literal at 10:00:00.000700 keeps the row stamped at
+    10:00:00.000 out of ts >= and the row at 10:10:00.000 in ts < (and
+    likewise for > and <=), on both port engines; the JAX package floors
+    (ROADMAP "differences by design")."""
+    hold_list3(where, api_range, with_jax=False)
+    base = datetime(2024, 5, 1, 10, 0)
+    kept = SUBMS_KEPT[request.node.callspec.id]
+    want = [r for r in chip_smoke.list3_table(pa).to_pylist()
+            if (r["p_timestamp"] - base) // timedelta(milliseconds=1) in kept]
+    sql = chip_smoke.list3_queries(where)[0]
+    assert list3_run("port_gpu", sql, api_range) == chip_smoke.list3_rows(want)
+
+
+def test_chip_smoke_list3_phase_runs_on_the_cpu():
+    """chip_smoke.py's phase 9, on the CPU: every repro of list 3 through
+    the "gpu" engine's plain path equals the "cpu" engine, a select and a
+    GROUP BY each."""
+    assert chip_smoke.drive_list3(device="cpu") == 2 * len(chip_smoke.LIST3)

@@ -18,6 +18,7 @@ through
 Masks and ids are exact: both sides compute them without rounding.
 """
 
+import math
 import random
 from types import SimpleNamespace
 
@@ -28,6 +29,7 @@ import pyarrow.compute as pc
 import pytest
 import torch
 
+import chip_smoke
 from parseable_tpu.ops.device import encode_table as jax_encode
 from parseable_tpu.query.executor import QueryExecutor as JaxCpuExecutor
 from parseable_tpu.query.executor_tpu import PredicateCompiler as JaxCompiler
@@ -36,6 +38,7 @@ from parseable_tpu.query.planner import plan as jax_plan
 from parseable_tpu.query.sql import parse_sql as jax_parse
 from parseable_tpu_torch.ops import fold_cuda as F
 from parseable_tpu_torch.ops.device import encode_table as port_encode
+from parseable_tpu_torch.ops.device import f64_name
 from parseable_tpu_torch.query import executor_cuda as X
 from parseable_tpu_torch.query.executor import QueryExecutor as PortCpuExecutor
 from parseable_tpu_torch.query.planner import plan as port_plan
@@ -72,7 +75,9 @@ def where_of(text: str, parse):
 
 
 def port_block(table: pa.Table):
-    enc = port_encode(table, None)
+    """Every column of `table` and the f64 copies a WHERE may compare."""
+    names = set(table.column_names)
+    enc = port_encode(table, names | {f64_name(c) for c in names})
     dev = {}
     for name, col in enc.columns.items():
         dev[name] = torch.from_numpy(col.values)
@@ -161,7 +166,7 @@ def test_operand_rows_match_the_jax_stacks(blocks):
     layout = X.PlanLayout(key_specs=[], distinct_cols=["host"], **LAYOUT)
     prog = F.Program()
     X.PredicateCompiler().lower(where_of(text, port_parse), enc, prog)
-    ex._finish_program(prog, enc, dev, [], [], layout, (X._dt_to_us(X.parse_rfc3339(lo)) // 1000, None))
+    ex._finish_program(prog, enc, dev, [], [], layout, (X.time_ticks(X.parse_rfc3339(lo), "ms", ">="), None))
     words, slots, mask, _ = run(prog, dev, enc.block_rows)
     frows, brows = F.stack_operands(words, slots, mask, prog.n_frows, prog.n_brows)
 
@@ -327,3 +332,107 @@ def test_select_ships_only_the_predicate_columns(blocks):
     # host codes (1 B) and p_timestamp (4 B); the padded first table also
     # ships their validity (1 B each) and its padding mask (1 B)
     assert block_bytes == 4096 * (1 + 4 + 1 + 1 + 1) + 2048 * (1 + 4), routes
+
+
+# ------------------------------------------- f64 compares, NULL literals
+
+
+def f64_columns(n: int = 4096, seed: int = 11):
+    """An f64 column with chip_smoke's F64_HAZARDS (values next to the
+    literals below, 2^24 + 1, 1e-46, NaN, -0.0), its f32 rounding, and a
+    validity with 10% NULLs."""
+    rng = np.random.default_rng(seed)
+    d = rng.standard_normal(n) * 300
+    hazard = rng.random(n) < 0.5
+    d[hazard] = rng.choice(np.array(chip_smoke.F64_HAZARDS), int(hazard.sum()))
+    return d, d.astype(np.float32), rng.random(n) < 0.9
+
+
+def plain_mask(build, cols: dict) -> np.ndarray:
+    """The plain K3a verdict of the program `build(prog, slots)` over
+    `cols` (name -> (values, valid))."""
+    prog = F.Program()
+    slots = {c: prog.slot(c, f"{c}__valid") for c in cols}
+    build(prog, slots)
+    dev = {}
+    for c, (v, m) in cols.items():
+        dev[c], dev[f"{c}__valid"] = torch.from_numpy(v), torch.from_numpy(m)
+    n = len(next(iter(cols.values()))[0])
+    return run(prog, dev, n)[2].numpy()
+
+
+NP_CMP = {"=": np.equal, "!=": np.not_equal, "<": np.less, "<=": np.less_equal,
+          ">": np.greater, ">=": np.greater_equal}
+
+
+@pytest.mark.parametrize("literal", [250.0, 250.00000001, 2.0**24 + 1, 1e-46, -0.0, math.nan])
+@pytest.mark.parametrize("op", list(F.CMP))
+def test_cmp_f64_matches_numpy(op, literal):
+    """CMP_F64 compares f64 values, and f32 values read as f64, with the
+    exact f64 literal (NaN != t true, every ordered compare false); a
+    NULL value is unknown and drops the row."""
+    d, f, valid = f64_columns()
+    cols = {"d": (d, valid), "f": (f, valid)}
+    got = plain_mask(lambda p, s: (p.cmp_f64(s["d"], op, literal), p.cmp_f64(s["f"], op, literal),
+                                   p.or_()), cols)
+    with np.errstate(invalid="ignore"):
+        want = (NP_CMP[op](d, literal) | NP_CMP[op](f.astype(np.float64), literal)) & valid
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("negated", [False, True])
+@pytest.mark.parametrize("column", ["d", "f"])
+def test_in_f64_matches_numpy(column, negated):
+    d, f, valid = f64_columns()
+    items = [250.0, 12.3, 2.0**24 + 1, 1e-46, math.nan, -0.0]
+    x = d if column == "d" else f
+    got = plain_mask(lambda p, s: p.in_f64(s[column], items, negated), {column: (x, valid)})
+    hit = np.isin(x.astype(np.float64), np.array(items))
+    np.testing.assert_array_equal(got, (~hit if negated else hit) & valid)
+
+
+# (program over one NULL literal and the constants, SQL's answer a row)
+NULL_CONSTS = {
+    "null": (lambda p: p.const(True, known=False), False),
+    "not-null": (lambda p: (p.const(False, known=False), p.not_()), False),
+    "null-or-true": (lambda p: (p.const(True, known=False), p.const(True), p.or_()), True),
+    "null-or-false": (lambda p: (p.const(True, known=False), p.const(False), p.or_()), False),
+    "null-and-false-negated": (
+        lambda p: (p.const(True, known=False), p.const(False), p.and_(), p.not_()), True),
+    "null-and-true-negated": (
+        lambda p: (p.const(True, known=False), p.const(True), p.and_(), p.not_()), False),
+}
+
+
+@pytest.mark.parametrize("name", list(NULL_CONSTS))
+def test_const_with_known_zero_is_sql_null(name):
+    build, want = NULL_CONSTS[name]
+    d, _, valid = f64_columns(64)
+    got = plain_mask(lambda p, s: build(p), {"d": (d, valid)})
+    np.testing.assert_array_equal(got, np.full(64, want))
+
+
+def test_lowering_reads_f64_only_where_f32_is_not_exact():
+    """status (exact in f32) compares in f32 with 404 and as f64 with
+    16777217; lat (not exact) through its f64 copy, which a block encoded
+    without it does not have: that block declines."""
+    rng = np.random.default_rng(2)
+    t = pa.table({"status": pa.array(rng.choice([200.0, 404.0], 100)),
+                  "lat": pa.array(rng.random(100) * 500)})
+    needed = {"status", "lat", "status#f64", "lat#f64"}
+    enc = port_encode(t, needed)
+    assert enc.exact_cols == {"status"} and set(enc.columns) == needed - {"status#f64"}
+
+    def ops(text, e=enc):
+        prog = F.Program()
+        X.PredicateCompiler().lower(where_of(text, port_parse), e, prog)
+        ins = F.decode(torch.from_numpy(prog.pack()))[0]
+        return [(i[0], prog.slots[i[1]][0]) for i in ins
+                if i[0] in (F.CMP_F32, F.CMP_F64, F.IN_F32, F.IN_F64)]
+
+    assert ops("status = 404") == [(F.CMP_F32, "status")]
+    assert ops("status < 16777217") == [(F.CMP_F64, "status")]
+    assert ops("lat > 250 AND status IN (200, 404)") == [(F.CMP_F64, "lat#f64"), (F.IN_F32, "status")]
+    assert ops("lat IN (1, 2)") == [(F.IN_F64, "lat#f64")]
+    with pytest.raises(X.UnsupportedOnDevice, match="f64 copy"):
+        ops("lat > 250", port_encode(t, {"status", "lat"}))

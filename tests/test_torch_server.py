@@ -325,8 +325,8 @@ def test_queries_racing_the_sync_ticks_count_each_row_once(tmp_path):
         for _ in range(25):
             with lock:
                 before = acked[0]
-            # no time range: a bound at "now" truncates to the millisecond and
-            # would drop rows acked within the query's first millisecond
+            # no time range: a bound at "now" would cut the rows acked while
+            # the query runs
             res = QuerySession(p, engine="gpu", device="cpu").query(sql)
             with lock:
                 after = pushed[0]

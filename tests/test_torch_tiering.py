@@ -855,3 +855,74 @@ def test_gpu_query_without_a_card_raises_with_blocks_resident(exec_lake, monkeyp
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(DeviceUnavailable):
         QuerySession(p, engine="gpu").query(sql)
+
+
+# ----------------------------------------- f64 copies, concurrent queries
+
+
+def test_enccache_keeps_f64_copies_and_exact_markers(tmp_path):
+    """An entry written for a WHERE that compares lat (not exact in f32)
+    and status (exact) holds lat's f64 copy and a marker for status; a
+    read that asks for them gets both back, and so does can_serve. An
+    entry written without them misses such a read until a query's
+    write-behind adds them; the upload seed writes the markers only."""
+    t = enc_table()
+    asked = {"lat", "status", PD.f64_name("lat"), PD.f64_name("status")}
+    cache = PE.EncodedBlockCache(tmp_path)
+    assert cache.put(b"plain", PD.encode_table(t, {"lat", "status"}))
+    assert not cache.can_serve(b"plain", asked, set())
+    assert cache.get(b"plain", asked, set()) is None
+    live = PD.encode_table(t, asked)
+    assert live.exact_cols == {"status"} and PD.f64_name("lat") in live.columns
+    for source in (b"plain", b"fresh"):
+        assert cache.put(source, live)
+        assert cache.can_serve(source, asked, set())
+        got = cache.get(source, asked, set())
+        assert got.exact_cols == {"status"} and set(got.columns) == asked - {PD.f64_name("status")}
+        wide = got.columns[PD.f64_name("lat")]
+        np.testing.assert_array_equal(wide.values, live.columns[PD.f64_name("lat")].values)
+        assert wide.values.dtype == np.float64
+    # the upload seed (every column) marks status exact and copies nothing
+    seed = PD.encode_table(t, None)
+    assert seed.exact_cols == {"status"} and not any(PD.f64_base(c) for c in seed.columns)
+    assert cache.put(b"seeded", seed)
+    assert cache.can_serve(b"seeded", {"status", PD.f64_name("status")}, set())
+    assert not cache.can_serve(b"seeded", asked, set())
+    # a group key reads status as codes: its f64 copy is not needed
+    assert not cache.can_serve(b"fresh", asked, {"status"})
+    assert cache.put(b"fresh", PD.encode_table(t, {"status"}, dict_columns={"status"}))
+    assert cache.can_serve(b"fresh", asked, {"status"})
+    got = cache.get(b"fresh", asked, {"status"})
+    assert got.columns["status"].kind == "dict" and got.exact_cols == set()
+
+
+@pytest.mark.parametrize("engine", ["cpu", "gpu"])
+def test_concurrent_identical_queries_answer_in_full(tmp_path, engine):
+    """12 threads send the same GROUP BY through QuerySession at once: each
+    answers the JAX CPU engine's table in full (the JAX "tpu" engine
+    answers most of them empty, tests/test_query_concurrency.py
+    ::test_load_smoke_counters_monotonic)."""
+    tables = [make_table(80 + i, 100, 5) for i in range(3)]
+    p = write_lake(tmp_path, tables, engine="gpu" if engine == "gpu" else "cpu")
+    sql = f"SELECT host AS g0, count(*) AS c0 FROM {STREAM} GROUP BY g0"
+    want = jax_cpu(sql.replace(STREAM, "t"), tables)
+    assert sum(r["c0"] for r in want) == 300
+    PH.get_hotset().clear()
+    start = threading.Barrier(12)
+    answers: list = [None] * 12
+
+    def one(i: int) -> None:
+        sess = QuerySession(p, engine=engine, device="cpu" if engine == "gpu" else None)
+        start.wait()
+        answers[i] = sess.query(sql).table.to_pylist()
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(12)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+    p.shutdown()
+    PH.get_hotset().clear()
+    for got in answers:
+        assert got is not None
+        assert_rows(want, got, sql, exact_minmax=False)
