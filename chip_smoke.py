@@ -31,7 +31,9 @@ Phase 5 checks and times each kernel on the inputs the main path gave it
 block) and kernels A and B also on uniform inputs of the same shape; K5-K7
 there in the regime their rule picks and in the whole-copy rule's (a whole
 copy a CTA), timed in turns, K7 also with a NaN and an inf value that must
-stay in their own groups. Phase 6 runs the HTTP server. Any failed check
+stay in their own groups. Phase 6 runs the HTTP server: every ingest
+request must take the native lane's columnar tier, and a parse line gives
+each tier's parse-only rate on the same bodies. Any failed check
 raises, so the script exits non-zero; it needs one CUDA card and has no
 CPU path.
 
@@ -1700,6 +1702,7 @@ N_EVENTS = 1 << 20  # events sent over HTTP in phase 6
 EVENTS_PER_REQUEST = 1 << 14
 CLIENTS = 4
 EXTRA_EVENTS = 1000  # a last batch the short sync ticks must move into the lake
+PYTHON_PARSE_BODIES = 16  # bodies the Python lane parses in phase 6's parse line
 SERVER_QUERIES = {
     "count": "SELECT count(*) AS c FROM {stream}",
     "status": (
@@ -1833,6 +1836,58 @@ def http_query(port: int, sql: str) -> tuple[dict, float]:
     wall = time.perf_counter() - t
     check(status == 200, f"query {sql!r}: HTTP {status} {out}")
     return out, wall
+
+
+def parse_rates(bodies: list[bytes], python_bodies: int) -> dict:
+    """Parse-only rows/s of the ingest bodies, one body at a time, through
+    each tier of the native ingest ladder: columnar with the module's shard
+    count and with one shard (to Arrow arrays), NDJSON (to NDJSON, then
+    pyarrow's reader), and the Python lane (json.loads and flatten, on the
+    first `python_bodies` bodies), so that parse and HTTP/staging can be
+    told apart."""
+    import pyarrow as pa
+    import pyarrow.json as pj
+
+    from parseable_tpu_torch import native
+    from parseable_tpu_torch.config import Options
+    from parseable_tpu_torch.server.ingest_utils import flatten_json_records
+
+    opts = Options()
+    depth = opts.event_flatten_level - 1
+
+    def columnar(shards):
+        def run(body: bytes) -> int:
+            r = native.flatten_columnar(body, depth, shards=shards)
+            check(r is not None, "the columnar tier declined an ingest body")
+            return r[2]
+        return run
+
+    def ndjson(body: bytes) -> int:
+        r = native.flatten_ndjson(body, depth)
+        check(r is not None, "the NDJSON tier declined an ingest body")
+        return pj.read_json(pa.BufferReader(r[0])).num_rows
+
+    def python(body: bytes) -> int:
+        return len(flatten_json_records(json.loads(body), opts.event_flatten_level, None, None,
+                                        None, opts.event_max_chunk_age))
+
+    shards = native._effective_shards(len(bodies[0]), None)
+    tiers = {
+        f"columnar_x{shards}": (columnar(None), bodies),
+        "columnar_x1": (columnar(1), bodies),
+        "ndjson": (ndjson, bodies),
+        "python": (python, bodies[:python_bodies]),
+    }
+    out = {}
+    for name, (fn, some) in tiers.items():
+        t = time.perf_counter()
+        rows = sum(fn(b) for b in some)
+        dt = time.perf_counter() - t
+        check(rows == EVENTS_PER_REQUEST * len(some), f"{name} parsed {rows} rows")
+        out[name] = {"bodies": len(some), "rows": rows, "s": round(dt, 4),
+                     "rows_per_s": round(rows / dt, 1),
+                     "MB_per_s": round(sum(map(len, some)) / dt / 1e6, 1)}
+    return out
 
 
 def send_events(port: int, bodies: list[bytes], clients: int) -> tuple[int, list[float], float]:
@@ -1987,6 +2042,7 @@ def drive_server(torch, G, seed: int, device=None) -> dict:
 
     from parseable_tpu_torch.config import Options, StorageOptions
     from parseable_tpu_torch.ops import fold_cuda as F
+    from parseable_tpu_torch.server import ingest_utils as IU
     from parseable_tpu_torch.server.app import start_server
 
     work = ROOT / "build" / "smoke_server"
@@ -1999,6 +2055,7 @@ def drive_server(torch, G, seed: int, device=None) -> dict:
         want = oracle(np, cols)
         log(f"phase 6 events: {N_EVENTS} in {len(bodies)} bodies of {EVENTS_PER_REQUEST}, "
             f"{sum(map(len, bodies))} bytes, encoded in {time.perf_counter() - t:.2f} s")
+        log(f"phase 6 parse: {json.dumps(parse_rates(bodies, PYTHON_PARSE_BODIES))}")
 
         def options(sync_secs: int) -> Options:
             opts = Options()
@@ -2016,14 +2073,20 @@ def drive_server(torch, G, seed: int, device=None) -> dict:
         on_card = device is None
         server = start_server(options(3600), storage, device)
         try:
+            IU.reset_lane_stats()
             acked, lat, wall = send_events(server.port, bodies, CLIENTS)
+            lanes = IU.lane_stats()
             check(acked == N_EVENTS, f"{acked} events acked of {N_EVENTS}")
             lat_ms = np.array(lat) * 1e3
             log(
                 f"phase 6 ingest: {acked} events acked in {wall:.3f} s = {acked / wall:.6g} rows/s "
                 f"({CLIENTS} clients), ack latency p50 {np.percentile(lat_ms, 50):.3f} ms "
-                f"p99 {np.percentile(lat_ms, 99):.3f} ms max {lat_ms.max():.3f} ms"
+                f"p99 {np.percentile(lat_ms, 99):.3f} ms max {lat_ms.max():.3f} ms, "
+                f"lanes {json.dumps(lanes)}"
             )
+            served = {(lane, r): n for lane, rs in lanes.items() for r, n in rs.items() if n}
+            check(served == {("columnar", "hit"): len(bodies)},
+                  f"not every ingest request was a columnar hit: {lanes}")
             staging_walls = server_queries(torch, G, server, want, "staging", on_card)
         finally:
             t = time.perf_counter()
@@ -2083,6 +2146,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     try:
+        from parseable_tpu_torch import native
         from parseable_tpu_torch.ops import cuda_lib
         from parseable_tpu_torch.ops import fold_cuda as F
         from parseable_tpu_torch.ops import groupby_cuda as G
@@ -2114,8 +2178,20 @@ def main() -> int:
     report = probe("cuda")
     check(report.get("healthy") is True, f"device probe failed: {report}")
     log(f"phase 1 device: {report}")
-    built = cuda_lib.build_all([G.LIBRARY, SC.LIBRARY, F.LIBRARY])
-    log(f"phase 1 build: kernels built and loaded in {built:.3f} s")
+    # the native ingest library (g++) builds beside the kernels (nvcc)
+    from concurrent.futures import ThreadPoolExecutor
+
+    def load_native() -> float:
+        t = time.perf_counter()
+        native.load()
+        return time.perf_counter() - t
+
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        native_built = pool.submit(load_native)
+        built = cuda_lib.build_all([G.LIBRARY, SC.LIBRARY, F.LIBRARY])
+        native_s = native_built.result()
+    log(f"phase 1 build: kernels built and loaded in {built:.3f} s, the native ingest "
+        f"library in {native_s:.3f} s ({native.library_path().name})")
     timer = DeviceTimer(torch)
     phase_done("1 device and build")
 

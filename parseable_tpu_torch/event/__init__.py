@@ -34,6 +34,10 @@ class Event:
     custom_partition_values: dict[str, str] = field(default_factory=dict)
     stream_type: str = "UserDefined"
     log_source: LogSource = LogSource.JSON
+    # native columnar lane: the batch is payload-sized and backed by
+    # contiguous native buffers — staging streams it straight into the
+    # bucket's IPC file (no pending-regroup re-serialization)
+    direct_staging: bool = False
 
     def get_schema_key(self) -> str:
         """Key of this batch's schema shape + partition suffix
@@ -62,6 +66,8 @@ class Event:
         ts = self.parsed_timestamp
         if ts.tzinfo is not None:
             ts = ts.astimezone(UTC).replace(tzinfo=None)
-        stream.push(schema_key, self.rb, ts, self.custom_partition_values)
+        stream.push(
+            schema_key, self.rb, ts, self.custom_partition_values, direct=self.direct_staging
+        )
         if stream.metadata.first_event_at is None:
             stream.metadata.first_event_at = self.parsed_timestamp.isoformat()

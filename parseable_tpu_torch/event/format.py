@@ -12,9 +12,10 @@ Counterpart of `parseable_tpu/event/format.py`, trimmed to the Python lane
   offending field to `{name}_{type-suffix}` so ingest never fails on type
   drift (detect_schema_conflicts / rename_per_record_type_mismatches).
 
-The vectorized prepare/decode of the JAX package's native lanes
-(`prepare_and_decode_fast`) is not ported: every batch takes
-`prepare_event` + `decode`.
+`prepare_and_decode_fast` types cleanly typed batches through Arrow's C++
+builders and declines (None) where the per-value pipeline (`prepare_event`
++ `decode`) must decide; `fast_columns_from_table` is its column half,
+shared with the native ingest lane's tables.
 """
 
 from __future__ import annotations
@@ -26,7 +27,9 @@ from datetime import UTC, datetime
 from enum import Enum
 from typing import Any
 
+import numpy as np
 import pyarrow as pa
+import pyarrow.compute as pc
 
 from parseable_tpu_torch.utils.timeutil import parse_rfc3339
 
@@ -493,6 +496,199 @@ def _coerce(value: Any, t: pa.DataType) -> Any:
             return None
         return [_coerce(v, t.value_type) for v in value]
     return value
+
+
+def prepare_and_decode_fast(
+    records: list[dict[str, Any]],
+    stored_schema: dict[str, pa.Field] | None,
+    schema_version: SchemaVersion = SchemaVersion.V1,
+    time_partition: str | None = None,
+    infer_timestamp: bool = True,
+) -> tuple[pa.RecordBatch, pa.Schema] | None:
+    """Vectorized prepare+decode through Arrow's C++ builders — the Python
+    lane's fast path (the reference leans on arrow-json's Decoder the same
+    way, ingest.rs:60, json.rs:189).
+
+    Returns None whenever the batch needs the exact slow-path semantics:
+    per-record type-conflict renames, mixed-type columns, nested values,
+    time partitions, or time-ish strings that only partially parse. The
+    caller then runs prepare_event + decode, so behavior is identical —
+    this path only accelerates batches whose columns are cleanly typed.
+    """
+    if schema_version != SchemaVersion.V1 or time_partition is not None or not records:
+        return None
+    try:
+        tbl = pa.Table.from_pylist(records)
+    except (pa.ArrowInvalid, pa.ArrowTypeError, pa.ArrowNotImplementedError):
+        return None  # mixed-type column etc. -> slow path
+    except OverflowError:
+        # ints beyond int64 overflow Arrow's inference; the slow path
+        # stages them as float64
+        return None
+    # from_pylist infers columns from the first record; sparse batches
+    # (later records adding keys) need the per-record slow path
+    union_keys = set()
+    for rec in records:
+        union_keys.update(rec)
+    if len(union_keys) != len(tbl.column_names):
+        return None
+    return fast_columns_from_table(tbl, stored_schema, infer_timestamp, records)
+
+
+def fast_columns_from_table(
+    tbl: pa.Table,
+    stored_schema: dict[str, pa.Field] | None,
+    infer_timestamp: bool = True,
+    records: list[dict[str, Any]] | None = None,
+) -> tuple[pa.RecordBatch, pa.Schema] | None:
+    """Column-normalization half of the fast path, shared with the native
+    ingest lane (server/ingest_utils.py): the table there comes from the
+    columnar tier's buffers or from pyarrow's JSON reader over natively
+    flattened NDJSON, so `records` is None — record-dependent guards are
+    replaced by facts of those builders (a bool mixed into a numeric column
+    makes both decline rather than coerce)."""
+    stored = stored_schema or {}
+    normalized = [normalize_field_name(n) for n in tbl.column_names]
+    if len(set(normalized)) != len(normalized):
+        return None  # '@x' colliding with 'x' needs per-record handling
+
+    out: dict[str, pa.Array] = {}
+    for raw_name, name in zip(tbl.column_names, normalized):
+        col = tbl.column(raw_name).combine_chunks()
+        t = col.type
+        stored_f = stored.get(name)
+        if pa.types.is_struct(t) or pa.types.is_list(t) or pa.types.is_large_list(t):
+            return None  # nested residue / list coercion: slow path
+        # V1 base mapping
+        if pa.types.is_null(t):
+            target: pa.DataType = pa.string()
+        elif pa.types.is_boolean(t):
+            target = pa.bool_()
+        elif pa.types.is_integer(t) or pa.types.is_floating(t):
+            # pyarrow treats Python bool as numeric: a bool mixed into a
+            # numeric column would silently become 1.0/0.0 here, while the
+            # slow path types the column string — decline instead (read_json
+            # sources can't mix: the reader raises on bool-in-number)
+            if records is not None and any(
+                isinstance(rec.get(raw_name), bool) for rec in records
+            ):
+                return None
+            target = pa.float64()
+        elif pa.types.is_string(t) or pa.types.is_large_string(t):
+            target = pa.string()
+        elif pa.types.is_timestamp(t):
+            # read_json eagerly parses ISO-looking strings into timestamps
+            # regardless of field name; the slow path only infers time for
+            # time-ish names AND only when the stream infers timestamps —
+            # decline the mismatch instead of committing (with inference
+            # off, a pre-typed ts column would stage where the Python path
+            # stages strings)
+            if records is None and not (
+                (infer_timestamp and _is_timestampy(name))
+                or (stored.get(name) is not None and pa.types.is_timestamp(stored[name].type))
+            ):
+                return None
+            target = pa.timestamp("ms")
+        else:
+            return None
+        # timestamp inference for time-ish string columns: the slow path
+        # types the column ts when ANY value parses and nulls the rest;
+        # the fast path takes only the all-parse case and falls back on
+        # partial parses
+        wants_ts = (
+            target == pa.string()
+            and infer_timestamp
+            and _is_timestampy(name)
+            and not (stored_f is not None and pa.types.is_string(stored_f.type))
+        )
+        if stored_f is not None and pa.types.is_timestamp(stored_f.type):
+            wants_ts = pa.types.is_string(t) or pa.types.is_timestamp(t)
+            if not wants_ts:
+                return None  # non-string under a ts column: slow path
+        if (
+            wants_ts
+            and stored_f is None
+            and pa.types.is_string(t)
+            and not any(_parses_as_datetime(v) for v in pc.unique(col).drop_null().to_pylist())
+        ):
+            # a new column under a time-ish name none of whose values parse
+            # the way the slow path checks them (once per distinct string,
+            # stopping at the first that parses): the slow path infers
+            # string, so it stays string. The JAX package tries the casts
+            # below and declines, e.g. on every body with a `path` column
+            # ("at" is a time-ish name part), for the same table.
+            wants_ts = False
+        if wants_ts and pa.types.is_string(t):
+            # Arrow refuses LOSSY string->timestamp casts, so sub-ms
+            # precision strings (OTel emits microseconds) must parse at a
+            # finer unit first, then truncate to ms with safe=False —
+            # exactly what the slow path's parse_rfc3339 -> ms flooring does
+            parsed = None
+            for unit in ("ms", "us", "ns"):
+                try:
+                    # tz-suffixed strings -> UTC -> naive, matching
+                    # parse_rfc3339().replace(tzinfo=None)
+                    parsed = pc.cast(col, pa.timestamp(unit, tz="UTC"))
+                    parsed = pc.cast(parsed, pa.timestamp(unit))
+                    break
+                except (pa.ArrowInvalid, pa.ArrowNotImplementedError):
+                    try:
+                        # zone-less naive ISO strings cast directly
+                        parsed = pc.cast(col, pa.timestamp(unit))
+                        break
+                    except (pa.ArrowInvalid, pa.ArrowNotImplementedError):
+                        parsed = None
+            if parsed is not None:
+                if parsed.type != pa.timestamp("ms"):
+                    # FLOOR to ms (Arrow's unsafe cast truncates toward
+                    # zero, which would round pre-1970 values up by 1 ms vs
+                    # the slow path's parse_rfc3339 flooring)
+                    unit_per_ms = {"us": 1_000, "ns": 1_000_000}[parsed.type.unit]
+                    ints = pc.cast(parsed, pa.int64())
+                    nulls = pc.is_null(ints).to_numpy(zero_copy_only=False)
+                    filled = pc.fill_null(ints, 0).to_numpy(zero_copy_only=False)
+                    floored = np.floor_divide(filled, unit_per_ms)
+                    parsed = pc.cast(
+                        pa.array(floored, type=pa.int64(), mask=nulls),
+                        pa.timestamp("ms"),
+                    )
+                col = parsed
+                target = pa.timestamp("ms")
+            else:
+                # Arrow couldn't parse every value (partial parses, mixed
+                # zones, sub-ms precision, or plain non-time strings): the
+                # slow path decides per value — never silently commit a
+                # string column where it would infer timestamp
+                return None
+        # stored-schema overrides + column-level compatibility
+        if stored_f is not None and not pa.types.is_timestamp(stored_f.type):
+            st = stored_f.type
+            if pa.types.is_string(st):
+                if not (pa.types.is_string(target)):
+                    return None  # e.g. numbers under a stored string column
+            elif pa.types.is_floating(st):
+                if not pa.types.is_floating(target):
+                    return None
+            elif pa.types.is_integer(st):
+                # V1 widened everything to float64; an int-typed stored
+                # column means V0 data — slow path handles it
+                return None
+            elif pa.types.is_boolean(st):
+                if not pa.types.is_boolean(target):
+                    return None
+            else:
+                return None
+            target = st
+        if col.type != target:
+            try:
+                col = pc.cast(col, target)
+            except (pa.ArrowInvalid, pa.ArrowNotImplementedError):
+                return None
+        out[name] = col
+    names = sorted(out)
+    schema = pa.schema([pa.field(n, out[n].type, nullable=True) for n in names])
+    batch = pa.record_batch([out[n] for n in names], schema=schema)
+    return batch, schema
 
 
 def decode(records: list[dict[str, Any]], schema: pa.Schema) -> pa.RecordBatch:

@@ -3,8 +3,8 @@
 Counterpart of `parseable_tpu/event/json_format.py`. `JsonEvent.into_event`
 runs the to_data pipeline: conflict renames -> schema inference/merge ->
 columnar decode -> p_timestamp & custom columns -> an `Event` ready for
-staging. Every batch takes the per-value Python path (`prepare_event` +
-`decode`); the JAX package's vectorized variant is not ported.
+staging. Cleanly typed batches take the vectorized `prepare_and_decode_fast`;
+the rest the per-value `prepare_event` + `decode`.
 """
 
 from __future__ import annotations
@@ -15,7 +15,12 @@ from datetime import UTC, datetime
 from typing import Any
 
 from parseable_tpu_torch.event import Event
-from parseable_tpu_torch.event.format import LogSource, decode, prepare_event
+from parseable_tpu_torch.event.format import (
+    LogSource,
+    decode,
+    prepare_and_decode_fast,
+    prepare_event,
+)
 from parseable_tpu_torch.streams import LogStreamMetadata
 from parseable_tpu_torch.utils.arrowutil import add_parseable_fields
 from parseable_tpu_torch.utils.timeutil import parse_rfc3339
@@ -60,14 +65,24 @@ class JsonEvent:
                     f"fields {extra} are not part of the static schema for "
                     f"stream {self.stream_name!r}"
                 )
-        prepared = prepare_event(
+        fast = prepare_and_decode_fast(
             self.records,
             metadata.schema or None,
             metadata.schema_version,
             metadata.time_partition,
             metadata.infer_timestamp,
         )
-        batch = decode(prepared.records, prepared.schema)
+        if fast is not None:
+            batch, _schema = fast
+        else:
+            prepared = prepare_event(
+                self.records,
+                metadata.schema or None,
+                metadata.schema_version,
+                metadata.time_partition,
+                metadata.infer_timestamp,
+            )
+            batch = decode(prepared.records, prepared.schema)
         batch = add_parseable_fields(batch, self.p_timestamp, self.custom_fields)
 
         parsed_timestamp = self.p_timestamp

@@ -13,8 +13,9 @@ package's `all` mode:
 
 Status codes and JSON bodies are the JAX package's. Requests authenticate
 with Basic auth against the bootstrapped admin (P_USERNAME/P_PASSWORD).
-JSON parse/flatten/encode runs on a worker pool, queries on their own
-pool, and two background loops move staging into the lake (local sync
+Ingest runs on a worker pool (the native lane parses each body with the
+GIL released, sharded over its own pool: `server/ingest_utils.py`),
+queries on their own pool, and two background loops move staging into the lake (local sync
 every P_LOCAL_SYNC_INTERVAL s, upload every P_STORAGE_UPLOAD_INTERVAL s).
 
 Queries run on the engine of `Options.query_engine`, "gpu" by default:
@@ -41,7 +42,7 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 from aiohttp import web
 
-from parseable_tpu_torch import __version__
+from parseable_tpu_torch import __version__, native
 from parseable_tpu_torch.config import Options, StorageOptions, parse_cli
 from parseable_tpu_torch.core import Parseable, StreamError, StreamNotFound, validate_stream_name
 from parseable_tpu_torch.event.format import LogSource
@@ -76,6 +77,9 @@ class ServerState:
     def __init__(self, p: Parseable, device: torch.device | str | None = None):
         self.p = p
         self.device = self._require_device(p.options.query_engine, device)
+        # the native ingest lane's library: built now (g++, first use only),
+        # not by the first request; a server that cannot build it does not start
+        native.load()
         self.rbac = RbacStore()
         bootstrap_admin(self.rbac, p.options.username, p.options.password)
         self.workers = ThreadPoolExecutor(max_workers=8, thread_name_prefix="ingest")
@@ -136,9 +140,12 @@ class ServerState:
         self.workers.shutdown(wait=True)
         self.query_workers.shutdown(wait=True)
         self.p.shutdown()
-        # the encoded-block cache's write-behind thread: every thread the
-        # server starts has a deterministic stop
+        # the encoded-block cache's write-behind thread and the native
+        # parse pool (it drains queued shard jobs before joining, and
+        # restarts lazily if anything parses after the stop): every thread
+        # the server starts has a deterministic stop
         shutdown_enccache()
+        native.shutdown_parse_pool()
 
 
 STATE = web.AppKey("state", ServerState)

@@ -1,22 +1,41 @@
 """Ingest dispatch: flatten JSON and push it into staging.
 
 Counterpart of `parseable_tpu/server/ingest_utils.py` (reference:
-handlers/http/modal/utils/ingest_utils.rs), trimmed to the Python lane:
-plain JSON goes through the depth guard, generic (cross-product)
-flattening and `flatten`, then `push_logs` chunks records per partition
-value and builds and processes events. The JAX package's native lanes,
-OTel, Kinesis and known-format extraction are later slices; those log
-sources are refused with an `IngestError`.
+handlers/http/modal/utils/ingest_utils.rs), trimmed to plain JSON. A raw
+body walks a three-tier ladder, each tier declining to the next on shapes
+it cannot represent exactly, so every tier stages the same table:
+
+1. columnar — the native library parses and flattens the body in one pass
+   into Arrow-layout buffers (sharded over its worker pool, GIL released),
+   imported zero-copy, normalized by `fast_columns_from_table` and written
+   direct to the staging IPC file;
+2. NDJSON — the native library flattens to NDJSON and pyarrow's JSON
+   reader builds the columns;
+3. Python — `json.loads`, the depth guard, generic (cross-product)
+   flattening and `flatten`, then `push_logs` chunks records per partition
+   value and builds and processes events.
+
+`lane_stats()` counts requests by lane and result. OTel, Kinesis and
+known-format extraction are later slices; those log sources are refused
+with an `IngestError`.
 """
 
 from __future__ import annotations
 
 import json
+import threading
+from datetime import UTC, datetime
 from typing import Any
 
+import pyarrow as pa
+import pyarrow.json as pj
+
+from parseable_tpu_torch import native
 from parseable_tpu_torch.core import Parseable
-from parseable_tpu_torch.event.format import LogSource
+from parseable_tpu_torch.event import Event
+from parseable_tpu_torch.event.format import LogSource, SchemaVersion, fast_columns_from_table
 from parseable_tpu_torch.event.json_format import JsonEvent
+from parseable_tpu_torch.utils.arrowutil import add_parseable_fields
 from parseable_tpu_torch.utils.flatten import (
     JsonFlattenError,
     flatten,
@@ -72,6 +91,32 @@ def _parse_payload(payload: Any, raw_body: bytes | None) -> Any:
         raise IngestError(f"invalid JSON: {e}") from e
 
 
+LANES = ("columnar", "ndjson", "python")
+RESULTS = ("hit", "declined")
+_lane_lock = threading.Lock()
+_lane_counts = {(lane, result): 0 for lane in LANES for result in RESULTS}
+
+
+def _lane_result(lane: str, result: str) -> None:
+    """Count one request by the lane that served it: a native tier's "hit",
+    "python"/"declined" after the native tiers declined it, "python"/"hit"
+    when none was asked (no raw body)."""
+    with _lane_lock:
+        _lane_counts[(lane, result)] += 1
+
+
+def lane_stats() -> dict[str, dict[str, int]]:
+    """{lane: {result: requests}} since the last `reset_lane_stats`."""
+    with _lane_lock:
+        return {lane: {r: _lane_counts[(lane, r)] for r in RESULTS} for lane in LANES}
+
+
+def reset_lane_stats() -> None:
+    with _lane_lock:
+        for key in _lane_counts:
+            _lane_counts[key] = 0
+
+
 def flatten_and_push_logs(
     p: Parseable,
     stream_name: str,
@@ -82,8 +127,10 @@ def flatten_and_push_logs(
     log_source_name: str | None = None,
     raw_body: bytes | None = None,
 ) -> int:
-    """Parse (from `raw_body` when `payload` is None) and flatten plain
-    JSON, then push it into staging. Returns the row count."""
+    """Flatten plain JSON and push it into staging. Returns the row count.
+
+    With `raw_body` (the undecoded HTTP payload) the native tiers go first;
+    `payload` may then be None — it is parsed only if they decline."""
     plain_json = log_source == LogSource.JSON or (
         log_source == LogSource.CUSTOM and not log_source_name
     )
@@ -92,6 +139,15 @@ def flatten_and_push_logs(
             f"log source {log_source_name or log_source.value!r} is not supported by this "
             "server yet; send plain JSON"
         )
+    if raw_body is not None:
+        lane_out: dict = {}
+        count = ingest_native_fast(p, stream_name, raw_body, log_source, custom_fields, lane_out)
+        if count is not None:
+            _lane_result(lane_out["lane"], "hit")
+            return count
+        _lane_result("python", "declined")
+    else:
+        _lane_result("python", "hit")
     meta = p.get_stream(stream_name).metadata
     rows = flatten_json_records(
         _parse_payload(payload, raw_body),
@@ -110,6 +166,133 @@ def flatten_and_push_logs(
             f"({p.options.dataset_fields_allowed_limit})"
         )
     return push_logs(p, stream_name, rows, log_source, custom_fields, origin_size)
+
+
+def ingest_native_fast(
+    p: Parseable,
+    stream_name: str,
+    raw_body: bytes,
+    log_source: LogSource,
+    custom_fields: dict[str, str] | None,
+    lane_out: dict | None = None,
+) -> int | None:
+    """The native tiers of the ladder: columnar, then NDJSON. Returns the
+    row count, or None whenever a stage prefers the exact Python semantics
+    (arrays, sparse/duplicate keys, depth, mixed types, partial timestamp
+    parses, partitioned or static streams, malformed JSON) — every decline
+    falls through with identical results. `lane_out` receives
+    {"lane": "columnar"|"ndjson"} on a hit."""
+    stream = p.get_stream(stream_name)
+    if not _native_lane_eligible(stream.metadata):
+        return None
+    # C++ depth N == Python level N+1 (scalars sit one level below the
+    # deepest dict), so the native limit is event_flatten_level - 1 exactly
+    depth = p.options.event_flatten_level - 1
+    r = native.flatten_columnar(raw_body, depth)
+    if r is not None:
+        names, arrays, nrows = r
+        count = 0 if nrows == 0 else _columns_to_event(
+            p, stream, names, arrays, len(raw_body), log_source, custom_fields
+        )
+        # a normalization decline goes to the Python lane: the NDJSON tier
+        # would assemble the same columns and decline identically
+        if count is not None and lane_out is not None:
+            lane_out["lane"] = "columnar"
+        return count
+    r = native.flatten_ndjson(raw_body, depth)
+    if r is None:
+        return None
+    ndjson, nrows = r
+    count = 0 if nrows == 0 else _ndjson_to_event(
+        p, stream, ndjson, len(raw_body), log_source, custom_fields
+    )
+    if count is not None and lane_out is not None:
+        lane_out["lane"] = "ndjson"
+    return count
+
+
+def _native_lane_eligible(meta) -> bool:
+    return (
+        meta.time_partition is None
+        and meta.custom_partition is None
+        and not meta.static_schema_flag
+        and meta.schema_version == SchemaVersion.V1
+    )
+
+
+def _columns_to_event(
+    p: Parseable,
+    stream,
+    names: list[str],
+    arrays: list[pa.Array],
+    origin_size: int,
+    log_source: LogSource,
+    custom_fields: dict[str, str] | None,
+) -> int | None:
+    """Columnar tier's tail: the natively built arrays (zero-copy) assemble
+    straight into a table for the shared normalization. They are single
+    contiguous buffers, so the staged batch streams direct into the bucket's
+    IPC file."""
+    tbl = pa.Table.from_arrays(arrays, names=names)
+    return _table_to_event(p, stream, tbl, origin_size, log_source, custom_fields, direct=True)
+
+
+def _ndjson_to_event(
+    p: Parseable,
+    stream,
+    ndjson: bytes,
+    origin_size: int,
+    log_source: LogSource,
+    custom_fields: dict[str, str] | None,
+) -> int | None:
+    """NDJSON tier's tail: pyarrow's JSON reader builds the columns from the
+    natively flattened NDJSON. None when the reader prefers the exact
+    Python path."""
+    try:
+        # BufferReader wraps the bytes zero-copy (BytesIO copies them)
+        tbl = pj.read_json(pa.BufferReader(ndjson))
+    except (pa.ArrowInvalid, pa.ArrowNotImplementedError):
+        return None  # reader-level type conflict: the Python lane decides
+    return _table_to_event(p, stream, tbl, origin_size, log_source, custom_fields)
+
+
+def _table_to_event(
+    p: Parseable,
+    stream,
+    tbl: pa.Table,
+    origin_size: int,
+    log_source: LogSource,
+    custom_fields: dict[str, str] | None,
+    direct: bool = False,
+) -> int | None:
+    """Shared tail of both native tiers: `fast_columns_from_table` types the
+    columns, then the event goes through the unchanged schema commit and
+    staging. None when the normalizer prefers the exact Python path."""
+    meta = stream.metadata
+    if len(tbl.column_names) > p.options.dataset_fields_allowed_limit:
+        raise IngestError(
+            f"fields ({len(tbl.column_names)}) exceed dataset limit "
+            f"({p.options.dataset_fields_allowed_limit})"
+        )
+    fast = fast_columns_from_table(tbl, meta.schema or None, meta.infer_timestamp)
+    if fast is None:
+        return None
+    batch, _schema = fast
+    now = datetime.now(UTC)
+    batch = add_parseable_fields(batch, now, custom_fields or {})
+    ev = Event(
+        stream_name=stream.name,
+        rb=batch,
+        origin_format="json",
+        origin_size=origin_size,
+        is_first_event=not meta.schema,
+        parsed_timestamp=now,
+        stream_type=meta.stream_type,
+        log_source=log_source,
+        direct_staging=direct,
+    )
+    ev.process(stream, commit_schema=p.commit_schema)
+    return batch.num_rows
 
 
 def push_logs(

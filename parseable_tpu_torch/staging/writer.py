@@ -1,8 +1,7 @@
 """Staging writers: minute-bucketed Arrow IPC part files + memory buffer.
 
-Counterpart of `parseable_tpu/staging/writer.py`, without the direct write
-of the JAX package's native-columnar lane (every batch is buffered and
-regrouped). Parity targets (reference: src/parseable/staging/writer.rs):
+Counterpart of `parseable_tpu/staging/writer.py`. Parity targets
+(reference: src/parseable/staging/writer.rs):
 - `DiskWriter`  — appends record batches to a `.part.arrows` IPC file for one
   (schema-key, minute, custom-partition) bucket; `finish()` renames it to
   `.arrows`, making it eligible for parquet conversion (writer.rs:259-327).
@@ -11,7 +10,9 @@ regrouped). Parity targets (reference: src/parseable/staging/writer.rs):
 - `Writer`      — owns both plus out-of-window pending writes.
 
 Batches are buffered and written in groups of `disk_write_batch_rows` rows
-(reference: DISK_WRITE_BATCH_ROWS) to keep IPC framing overhead low.
+(reference: DISK_WRITE_BATCH_ROWS) to keep IPC framing overhead low; a batch
+of the native columnar lane (payload-sized, on contiguous native buffers) is
+written direct, with no regrouping.
 """
 
 from __future__ import annotations
@@ -31,8 +32,9 @@ PART_FILE_EXTENSION = "part.arrows"
 
 
 # Explicit IPC write options for the staging files: no compression and the
-# current metadata version, stated rather than inherited — recover_orphans
-# and the converter read what the JAX package's writers produce identically.
+# current metadata version, stated rather than inherited, so the direct and
+# the buffered path provably produce the same framing — recover_orphans and
+# the converter read both, and the JAX package's files, identically.
 IPC_WRITE_OPTIONS = ipc.IpcWriteOptions()
 
 
@@ -47,14 +49,32 @@ class DiskWriter:
         self.rows_written = 0
         self._pending: list[pa.RecordBatch] = []
         self._pending_rows = 0
+        # write-path accounting: direct = straight write_batch from the
+        # native buffers, buffered = through the _pending regrouping,
+        # adapted = schema-mismatch copies through adapt_batch
+        self.direct_writes = 0
+        self.buffered_writes = 0
+        self.adapted_writes = 0
         path.parent.mkdir(parents=True, exist_ok=True)
         self._sink = pa.OSFile(str(path), "wb")
         self._writer = ipc.new_file(self._sink, schema, options=IPC_WRITE_OPTIONS)
         self.finished = False
 
-    def write(self, batch: pa.RecordBatch) -> None:
+    def write(self, batch: pa.RecordBatch, direct: bool = False) -> None:
         if batch.schema != self.schema:
             batch = adapt_batch(self.schema, batch)
+            self.adapted_writes += 1
+            direct = False  # adapt copied; regroup like any Python-lane batch
+        if direct:
+            # pending batches (an earlier Python-lane write buffered some)
+            # flush first, so row order in the file stays ingestion order
+            if self._pending:
+                self._flush_pending()
+            self._writer.write_batch(batch)
+            self.rows_written += batch.num_rows
+            self.direct_writes += 1
+            return
+        self.buffered_writes += 1
         self._pending.append(batch)
         self._pending_rows += batch.num_rows
         if self._pending_rows >= self.batch_rows:
@@ -119,12 +139,14 @@ class Writer:
         self.mem: MemWriter | None = MemWriter() if enable_memory else None
         self.batch_rows = batch_rows
 
-    def push(self, bucket_key: str, path: Path, batch: pa.RecordBatch) -> None:
+    def push(
+        self, bucket_key: str, path: Path, batch: pa.RecordBatch, direct: bool = False
+    ) -> None:
         w = self.disk.get(bucket_key)
         if w is None or w.finished:
             w = DiskWriter(path, batch.schema, self.batch_rows)
             self.disk[bucket_key] = w
-        w.write(batch)
+        w.write(batch, direct=direct)
         if self.mem is not None:
             self.mem.push(batch)
 

@@ -123,11 +123,15 @@ class Stream:
         batch: pa.RecordBatch,
         parsed_timestamp: datetime,
         custom_partition_values: dict[str, str] | None = None,
+        direct: bool = False,
     ) -> None:
+        """direct=True (native columnar lane): the batch goes straight to
+        the bucket's IPC writer without the pending-regroup buffering —
+        same file framing, no RecordBatch re-serialization."""
         filename = self.filename_by_partition(schema_key, parsed_timestamp, custom_partition_values)
         bucket_key = filename[: -len("." + PART_FILE_EXTENSION)]
         with self.lock:
-            self.writer.push(bucket_key, self.data_path / filename, batch)
+            self.writer.push(bucket_key, self.data_path / filename, batch, direct=direct)
 
     # --- listing -----------------------------------------------------------
 

@@ -12,14 +12,18 @@ native library when that loads), per-conversion ids, and arrival times
 Then each package reads the lake the other wrote, and both apps answer
 the same HTTP ingest requests with the same bodies.
 
-Every ingest call into the JAX package in the port's tests is in this file,
-and so is every statistics comparison that needs the JAX package's native
-library (its xxHash64, which approx_distinct hashes with). A fresh checkout
-builds that library in place at its first load, and two xdist workers that
-load it at once can race on the build; kept in this file, those comparisons
-add no worker that loads it. They (the statistics slice, approx_distinct
-and the HLL sketch) sit at the end and share `tests/test_torch_stats.py`'s
-helpers and tolerances.
+Every ingest call into the JAX package in the port's tests that may load
+its native library is in this file (`tests/test_torch_native.py` keeps the
+JAX package on its Python lane), and so is every statistics comparison
+that needs the JAX package's native library (its xxHash64, which approx_distinct hashes with). A fresh checkout
+builds that library in place at its first load, and a worker that loads it
+while another worker's build is still writing it caches the failure for
+its whole session. So this module, which every xdist worker imports while
+collecting, loads it once under a file lock (`_load_jax_native_once`)
+before any test runs: the first worker builds it, the others wait and load
+the finished file. The statistics comparisons (the statistics slice,
+approx_distinct and the HLL sketch) sit at the end and share
+`tests/test_torch_stats.py`'s helpers and tolerances.
 
 Tolerances: counts, keys and strings exact; floats rel 2e-4, abs 1e-6 (the
 GPU engine's f32 partials against f64 engines).
@@ -27,9 +31,11 @@ GPU engine's f32 partials against f64 engines).
 
 import asyncio
 import base64
+import fcntl
 import json
 import re
 from datetime import UTC, datetime
+from pathlib import Path
 
 import numpy as np
 import pyarrow as pa
@@ -66,6 +72,20 @@ from tests.test_torch_stats import (
     stats_table,
     tables,  # noqa: F401 (a fixture)
 )
+
+
+def _load_jax_native_once() -> None:
+    """Load (building it if it is missing) the JAX package's native library
+    under a lock in the gitignored `build/`, so no two processes build it at
+    once (module docstring)."""
+    lock_dir = Path(__file__).resolve().parents[1] / "build"
+    lock_dir.mkdir(exist_ok=True)
+    with open(lock_dir / ".jax_native_build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        native._load()
+
+
+_load_jax_native_once()
 
 TOL = dict(rel=2e-4, abs=1e-6)
 STREAM = "weblogs"

@@ -137,7 +137,7 @@ def test_jax_package_reads_the_lake_the_port_wrote(tmp_path):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Importing the whole port (every module, the server, ingest, event,
-    staging and block-tier modules named too) loads no JAX."""
+    staging, native-lane and block-tier modules named too) loads no JAX."""
     code = (
         "import pkgutil, sys, parseable_tpu_torch\n"
         "for m in pkgutil.walk_packages(parseable_tpu_torch.__path__, 'parseable_tpu_torch.'):\n"
@@ -150,6 +150,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import parseable_tpu_torch.ops.hotset, parseable_tpu_torch.ops.enccache\n"
         "import parseable_tpu_torch.ops.link, parseable_tpu_torch.ops.prefetch\n"
         "import parseable_tpu_torch.storage.enrichment, parseable_tpu_torch.query.stubs\n"
+        "import parseable_tpu_torch.native\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
         "             or n == 'parseable_tpu' or n.startswith('parseable_tpu.'))\n"
         "print(bad)\n"
