@@ -5,7 +5,8 @@
 
 Builds the hand-written kernels from `parseable_tpu_torch/csrc/`, holds
 every regime of each against its plain PyTorch version on the card (phase
-2; with the regimes side by side at the shapes where the rules switch, and
+2; with the regimes side by side at the shapes where the rules switch,
+kernels A, B and K7 at the block-local fold's 2^17-2^22 groups, and
 the fold's front half, K3, bit for bit on programs that use every opcode
 over NaN, NULL, f64 values next to their literals and wrapping times, on
 16-byte-aligned columns and on columns one element off), answers ROADMAP
@@ -26,6 +27,15 @@ approximate percentiles, count(distinct) and approx_distinct, through the
 statistics kernels K5-K7 (`parseable_tpu_torch/csrc/stats.cu`). Phase 8
 runs the groupby query twice under a hot-set budget below its blocks:
 evictions, and the prefetcher shipping blocks on its own CUDA stream.
+Phase 10 writes a lake of `bench.py`'s "highcard" profile (10,240 hosts,
+102,400 paths; 8 files of 2^20 rows, a stream of its own) and answers
+three high-cardinality GROUP BYs on both engines, cold, disk-warm and
+device-warm: a dense one whose ORDER BY <aggregate> LIMIT picks its groups
+on the card (K8, `csrc/topk.cu`), and two past the dense budget, folded
+block-local (K3a's KEY_CODE, A, B and K7 at 2^20-2^21 groups a block; one
+in pair mode) and merged as partial tables; K8 is held bit for bit against
+its plain version on that query's accumulator and on a hazard set, and
+timed beside torch.topk.
 Phase 5 checks and times each kernel on the inputs the main path gave it
 (one block per shape, recorded in phases 4 and 7; K3 on each query's own
 block) and kernels A and B also on uniform inputs of the same shape; K5-K7
@@ -569,7 +579,8 @@ def k3_programs(F, np, rng) -> list:
     and operand row: each leaf alone under each comparison (NaN, -0.0 and
     +-inf literals among them), the connectives over NULLs, then the keys
     (dictionary remaps with their 2^30 sentinel, time bins with a wrapping
-    shift and a negative offset) and every kind of operand row."""
+    shift and a negative offset, a block's own codes and pair codes) and
+    every kind of operand row."""
     luts = {"c8": rng.random(256) < 0.5, "c16": rng.random(1024) < 0.3,
             "c32": rng.random(8192) < 0.5}
     out = []
@@ -613,6 +624,15 @@ def k3_programs(F, np, rng) -> list:
         p.row(F.ROW_LIVE, s["c16"])
         p.row(F.ROW_LIVE, s["c32"], bool_out=True)
 
+    def own_codes(p, s):  # the local fold's keys: own codes, a time bin, pair codes
+        p.const(True)
+        p.key_code(s["c8"], 64, 1)  # int8 codes over the whole signed range
+        p.key_time(s["t"], 0, 60_000, -2, 8, 64)
+        p.key_code(s["c16"], 512, 512)
+        p.key_code(s["c32"], 1 << 12, 1 << 18)  # a pair key: cap = its group count
+        p.row(F.ROW_MASK)
+        p.row(F.ROW_MASKED, s["f"])
+
     def nulls(p, s):  # NOT (NOT NULL OR (d > 250 AND NULL) OR (NULL AND f < 1e-46))
         p.const(True, known=False)
         p.not_()
@@ -649,7 +669,8 @@ def k3_programs(F, np, rng) -> list:
         program(f"const NULL {neg}", lambda p, s, neg=neg: p.const(neg, known=False))
     program("connectives", connectives)
     program("NULL connectives", nulls)
-    program("keys and rows", keys_and_rows)
+    program("own codes", own_codes)
+    program("keys and rows", keys_and_rows)  # last: its verdicts are mixed
     return out
 
 
@@ -707,7 +728,7 @@ def k3_bytes(F, kind: str, data: tuple) -> tuple[float, int]:
                     F.NOT_IN_F64)
         for op, slot, a, b, *_ in ins:
             values, valid = slots[slot] if slots else (None, None)
-            if op in compares or (op in (F.KEY_DICT, F.KEY_TIME) and data[3]):
+            if op in compares or (op in (F.KEY_DICT, F.KEY_TIME, F.KEY_CODE) and data[3]):
                 take(values)
             if op in compares or op in (F.IS_NULL, F.NOT_NULL):
                 take(valid)
@@ -809,6 +830,39 @@ def k3_hazards(torch, F, timer, seed: int) -> None:
     res = k3_case(torch, F, timer, "stack_operands",
                   (data[0], data[1], mask, prog.n_frows, prog.n_brows), "hazards")
     log(f"phase 2 stack_operands {json.dumps(res)}")
+
+
+# ---------------------------------------------------------------- K8
+
+# the aggregates K8 orders by: (SELECT item, its kind); `TOPK_SQL` holds them
+TOPK_ITEMS = (
+    ("count(*)", "count_star"), ("count(v)", "count"), ("sum(v)", "sum"), ("avg(v)", "avg"),
+    ("min(v)", "min"), ("max(v)", "max"), ("stddev(v)", "stddev"), ("var(v)", "var"),
+)
+TOPK_SQL = f"SELECT g, {', '.join(item for item, _ in TOPK_ITEMS)} FROM t GROUP BY g"
+TOPK_POOL = (0.0, -0.0, 1.0, 2.0, 3.0, 7.5, -1.0, 100.0, 3.4e38, -3.4e38, 3.4028235e38,
+             float("inf"), float("-inf"), float("nan"))
+
+
+def topk_hazard_acc(np, rng, rows: int, g: int, count_rows: int, subnormals: bool = True):
+    """A packed accumulator f32 [rows, g] of K8's hazards. Its first
+    `count_rows` rows are counts, as the accumulator's count and per-agg
+    count rows: small integers (ties at any cut), 0 in a fifth of the slots
+    (an empty slot in row 0, a NULL aggregate elsewhere) and 1 in others (a
+    NULL variance). In every other row half the values come from a pool
+    (ties, NaN, +-inf, +-3.4e38, the largest f32, +-0.0), with subnormals
+    among them, and the rest are random."""
+    acc = (rng.standard_normal((rows, g)) * 1000).astype(np.float32)
+    u = rng.random((rows, g))
+    pool = np.array(TOPK_POOL, np.float32)
+    acc[u < 0.5] = rng.choice(pool, int((u < 0.5).sum()))
+    if subnormals:
+        sub = (u >= 0.5) & (u < 0.52)
+        acc[sub] = (rng.integers(1, 100, int(sub.sum())) * np.float32(1e-45)).astype(np.float32)
+    counts = rng.integers(1, 5, (count_rows, g))
+    counts[rng.random((count_rows, g)) < 0.2] = 0
+    acc[:count_rows] = counts
+    return acc
 
 
 class K3Recorder:
@@ -932,9 +986,11 @@ def same_select(name: str, gpu, cpu, order_key: str | None) -> None:
     check(by_all(inner_g).equals(by_all(inner_c)), f"{name}: rows above the edge differ")
 
 
-def build_lake(work: Path, seed: int, minutes: int, rows: int):
-    """Phase 3: stage one Parquet file per minute and sync it into the lake
-    through the port's own upload and catalog commit."""
+def build_lake(work: Path, seed: int, minutes: int, rows: int, stream_name: str = STREAM,
+               make=None, phase: str = "phase 3"):
+    """Phase 3 (10): stage one Parquet file per minute (`make`, by default
+    `make_minute`) and sync it into the lake through the port's own upload
+    and catalog commit."""
     import numpy as np
     import pyarrow as pa
 
@@ -945,19 +1001,20 @@ def build_lake(work: Path, seed: int, minutes: int, rows: int):
     opts = Options()
     opts.local_staging_path = work / "staging"
     p = Parseable(opts, StorageOptions(root=work / "data"))
-    stream = p.create_stream_if_not_exists(STREAM)
+    stream = p.create_stream_if_not_exists(stream_name)
     rng = np.random.default_rng(seed)
     for minute in range(minutes):
-        stream.write_parquet(make_minute(pa, np, rng, minute, rows), BASE + timedelta(minutes=minute))
+        table = (make or make_minute)(pa, np, rng, minute, rows)
+        stream.write_parquet(table, BASE + timedelta(minutes=minute))
     t1 = time.perf_counter()
     p.sync_all_streams()  # uploads, commits, and seeds the encoded-block cache
-    fmt = p.metastore.get_stream_json(STREAM)
+    fmt = p.metastore.get_stream_json(stream_name)
     check(fmt.stats.events == minutes * rows, f"lake holds {fmt.stats.events} rows")
     check(not stream.parquet_files(), "staged parquet left after sync")
     seeded = sorted((work / "staging" / "encoded_cache").glob("*.enc"))
     check(len(seeded) == minutes, f"the upload seed wrote {len(seeded)} of {minutes} entries")
     log(
-        f"phase 3 lake: {fmt.stats.events} rows in {minutes} files, "
+        f"{phase} lake: {fmt.stats.events} rows in {minutes} files, "
         f"{fmt.stats.storage} parquet bytes, {time.perf_counter() - t0:.2f} s (sync and the "
         f"encoded-block cache seed {time.perf_counter() - t1:.2f} s, "
         f"{sum(f.stat().st_size for f in seeded)} bytes in {len(seeded)} entries)"
@@ -970,6 +1027,7 @@ KERNEL_SYMBOLS = {
     "additive_groupby": "additive", "minmax_groupby": "minmax",
     "distinct_fold": "distinct_", "pct_histogram": "pct_hist_",
     "centered_m2": "m2_", "mask_ids": "k3_mask_ids", "stack_operands": "k3_stack_operands",
+    "topk_groups": "k8_",
 }
 
 
@@ -1037,14 +1095,15 @@ STATES = ("cold", "page-cache warm", "disk-warm", "device-warm")
 
 
 def state_runs(torch, p, qname: str, text: str, phase: str, device, rel=None,
-               select: tuple | None = None) -> list:
-    """One lake query on the "gpu" engine in the four cache states, one more
-    profiled page-cache-warm and device-warm run each (on the card), then
-    once on the "cpu" engine. Every GPU run equals the CPU run, stays on the
-    device, and resolves its blocks as its state says. A select (`select` =
-    (its order column or None,)) reads Parquet in every state, for its
-    projection, and its answer is held by `same_select`. Returns the GPU
-    results."""
+               select: tuple | None = None, states: tuple = STATES, compare=None) -> list:
+    """One lake query on the "gpu" engine in the cache `states` (all four by
+    default), one more profiled page-cache-warm and device-warm run each
+    (on the card), then once on the "cpu" engine. Every GPU run equals the
+    CPU run, stays on the device, and resolves its blocks as its state says.
+    A select (`select` = (its order column or None,)) reads Parquet in
+    every state, for its projection, and its answer is held by
+    `same_select`; `compare(name, gpu, cpu)`, when given, holds the answers
+    instead of `same_result`. Returns the GPU results."""
     import os
 
     from parseable_tpu_torch.ops.enccache import get_enccache
@@ -1090,7 +1149,7 @@ def state_runs(torch, p, qname: str, text: str, phase: str, device, rel=None,
         return res
 
     out = []
-    for state in STATES:
+    for state in states:
         res = gpu(state)
         if on_card and state in ("page-cache warm", "device-warm"):
             out.append(gpu(state, profiled=True))
@@ -1122,7 +1181,9 @@ def state_runs(torch, p, qname: str, text: str, phase: str, device, rel=None,
         routes = res.stats["device_routes"]
         check(routes["cpu_fallback"] == 0, f"{qname}: cpu_fallback {routes}")
         check(res.stats["scan_errors"] == 0, f"{qname}: scan errors")
-        if select is None:
+        if compare is not None:
+            compare(qname, res.table, cpu.table)
+        elif select is None:
             same_result(qname, res.table, cpu.table, rel)
         else:
             same_select(qname, res.table, cpu.table, select[0])
@@ -1152,6 +1213,7 @@ def drive_main_path(p, device=None) -> tuple[dict, dict, dict, "K3Recorder"]:
 
     from parseable_tpu_torch.ops import fold_cuda as F
     from parseable_tpu_torch.ops import groupby_cuda as G
+    from parseable_tpu_torch.ops import topk_cuda as K
 
     shapes: dict[str, dict] = {"additive_groupby": {}, "minmax_groupby": {}}
     inputs: dict[str, dict] = {"additive_groupby": {}, "minmax_groupby": {}}
@@ -1171,7 +1233,7 @@ def drive_main_path(p, device=None) -> tuple[dict, dict, dict, "K3Recorder"]:
         return real_b(ids, vals, valid, mask, g, n_min)
 
     on_card = device is None or torch.device(device).type == "cuda"
-    counts = (G.LAUNCHES, F.LAUNCHES)
+    counts = kernel_counters()
     reset_launches(counts)
     G.additive_groupby, G.minmax_groupby = rec_a, rec_b
     try:
@@ -1194,13 +1256,16 @@ def drive_main_path(p, device=None) -> tuple[dict, dict, dict, "K3Recorder"]:
                               f"{qname}: a select launched the fold {delta}")
                     if qname == "minmax":
                         check(delta["minmax_groupby"] > 0, f"{qname}: kernel B never launched")
+                    # ORDER BY <aggregate> LIMIT over 8,192 groups: the device top-k
+                    check((delta["topk_groups"] > 0) == (qname == "topk_multicol"),
+                          f"{qname}: K8 launches {delta['topk_groups']}")
                 log(f"phase 4 {qname}: gpu == cpu in every cache state, launches {delta}")
     finally:
         G.additive_groupby, G.minmax_groupby = real_a, real_b
     launches = launch_counts(counts)
     if on_card:
-        for name, n in launches.items():
-            check(n > 0, f"{name} was never launched on the main path")
+        for name in (*G.LAUNCHES, *F.LAUNCHES, *K.LAUNCHES):
+            check(launches[name] > 0, f"{name} was never launched on the main path")
     log(f"phase 4 launches on the main path: {launches}")
     log_residency(torch, "phase 4", on_card)
     return launches, shapes, inputs, k3
@@ -1256,6 +1321,17 @@ def drive_list3(device=None) -> int:
     return runs
 
 
+def kernel_counters() -> tuple:
+    """Every kernel wrapper's launch counter. Each phase resets and reads
+    all of them, so every count it reports was measured in its own run."""
+    from parseable_tpu_torch.ops import fold_cuda as F
+    from parseable_tpu_torch.ops import groupby_cuda as G
+    from parseable_tpu_torch.ops import stats_cuda as SC
+    from parseable_tpu_torch.ops import topk_cuda as K
+
+    return G.LAUNCHES, F.LAUNCHES, SC.LAUNCHES, K.LAUNCHES
+
+
 def launch_counts(counts: tuple) -> dict:
     """The kernels' launch counters, merged."""
     return {k: v for c in counts for k, v in c.items()}
@@ -1275,8 +1351,6 @@ def drive_pressure(torch, p, device=None) -> dict:
     the CPU engine's. Returns the launch counts of the phase."""
     import os
 
-    from parseable_tpu_torch.ops import fold_cuda as F
-    from parseable_tpu_torch.ops import groupby_cuda as G
     from parseable_tpu_torch.ops.hotset import get_hotset
     from parseable_tpu_torch.query.session import QuerySession
 
@@ -1289,7 +1363,7 @@ def drive_pressure(torch, p, device=None) -> dict:
     resident = hs.resident_bytes
     budget = int(2.5 * blocks[-1])
     check(budget < resident, f"budget {budget} not below the resident {resident} bytes")
-    counts = (G.LAUNCHES, F.LAUNCHES)
+    counts = kernel_counters()
     reset_launches(counts)
     os.environ["P_TPU_HOT_BYTES"] = str(budget)
     try:
@@ -1644,7 +1718,6 @@ def drive_stats(p, device=None) -> tuple[dict, dict, dict, "K3Recorder"]:
     from parseable_tpu_torch.ops import fold_cuda as F
     from parseable_tpu_torch.ops import groupby_cuda as G
     from parseable_tpu_torch.ops import stats_cuda as SC
-    from parseable_tpu_torch.query.session import QuerySession
 
     shapes: dict[str, dict] = {k: {} for k in STATS_KERNELS}
     inputs: dict[str, dict] = {k: {} for k in STATS_KERNELS}
@@ -1672,7 +1745,7 @@ def drive_stats(p, device=None) -> tuple[dict, dict, dict, "K3Recorder"]:
 
     on_card = device is None or torch.device(device).type == "cuda"
     SC.distinct_fold, SC.pct_histogram, SC.centered_m2 = rec_k5, rec_k6, rec_k7
-    counts = (G.LAUNCHES, SC.LAUNCHES, F.LAUNCHES)
+    counts = kernel_counters()
     reset_launches(counts)
     try:
         with K3Recorder(F) as k3:
@@ -1688,13 +1761,347 @@ def drive_stats(p, device=None) -> tuple[dict, dict, dict, "K3Recorder"]:
         SC.distinct_fold, SC.pct_histogram, SC.centered_m2 = (real[k] for k in STATS_KERNELS)
     launches = launch_counts(counts)
     if on_card:
-        for name, n in launches.items():
-            check(n > 0, f"{name} was never launched in phase 7")
+        for name in (*G.LAUNCHES, *F.LAUNCHES, *SC.LAUNCHES):
+            check(launches[name] > 0, f"{name} was never launched in phase 7")
     m2_regimes = {str(key): SC.m2_regime(key[0], key[2]) for key in shapes["centered_m2"]}
     check(set(m2_regimes.values()) == {"compact"}, f"K7 left the compact regime: {m2_regimes}")
     log(f"phase 7 launches: {launches}, K7 regimes {m2_regimes}")
     log_residency(torch, "phase 7", on_card)
     return launches, shapes, inputs, k3
+
+# ---------------------------------------------------------- high cardinality
+
+HC_STREAM = "hc"
+HC_MINUTES = 8  # 2^23 rows in all, one 2^20-row file a minute
+# (query, its group keys, the ORDER BY column of a LIMIT query or None)
+HC_QUERIES = {
+    # dense (2^17 path slots); ORDER BY <aggregate> LIMIT picks on the card (K8)
+    "hc_topk_path": (
+        "SELECT path, count(*) AS c, sum(bytes) AS s FROM {stream} "
+        "GROUP BY path ORDER BY s DESC LIMIT 10",
+        ("path",), "s",
+    ),
+    # 8 minute bins (the scan's time hint) x 2^17 path slots pass DENSE_G_MAX:
+    # block-local from the first block on, K3a's KEY_CODE, A, B and K7 at
+    # 8 x 2^17 groups a block; no LIMIT, so every group is compared
+    "hc_minute_path": (
+        "SELECT date_bin(interval '1 minute', p_timestamp) AS t, path, count(*) AS c, "
+        "max(latency_ms) AS m, stddev(latency_ms) AS sd FROM {stream} GROUP BY t, path",
+        ("t", "path"), None,
+    ),
+    # BASELINE config 4 on the highcard profile: 2^17 x 2^14 slots pass
+    # LOCAL_G_MAX, so each block's pairs compact (pair mode, ~2^21 groups)
+    "hc_topk_multicol": (
+        "SELECT path, host, count(*) AS c, sum(bytes) AS s FROM {stream} "
+        "GROUP BY path, host ORDER BY s DESC LIMIT 10",
+        ("path", "host"), "s",
+    ),
+}
+HC_LOCAL = ("hc_minute_path", "hc_topk_multicol")  # the queries that fold block-local
+HC_STATES = ("cold", "disk-warm", "device-warm")
+
+
+def make_hc_minute(pa, np, rng, minute: int, n: int):
+    """One minute of bench.py's "highcard" profile (bench.py:76-83 and
+    :109-124: the same columns, value sets and draw order), built with
+    numpy and pyarrow: 10,240 hosts, 102,400 paths, and messages of four
+    templates that carry a request id from a window of 50,000 fresh ids a
+    minute."""
+    import pyarrow.compute as pc
+
+    hosts = [f"10.{i}.{j}.{k}" for i in range(10) for j in range(32) for k in range(32)]
+    paths = [f"/api/v1/tenant{t}/resource{r}" for t in range(400) for r in range(256)]
+    statuses = np.array([200, 200, 200, 200, 301, 404, 500, 503], dtype=np.float64)
+    methods = ["GET", "GET", "GET", "POST", "PUT", "DELETE"]
+
+    def strings(values, idx):
+        return pa.DictionaryArray.from_arrays(
+            pa.array(idx.astype(np.int32)), pa.array(values)
+        ).cast(pa.string())
+
+    offsets = np.sort(rng.integers(0, 60_000, n))
+    req_ids = rng.integers(minute * 50_000, minute * 50_000 + 50_000, n)
+    tmpl = rng.integers(0, 4, n)
+    message = pc.binary_join_element_wise(
+        strings(["request ", "error: upstream timeout for request ",
+                 "slow query warning for request ", "request "], tmpl),
+        pa.array(req_ids).cast(pa.string()),
+        strings([" completed in 34ms", "", "", " cache miss"], tmpl),
+        "",
+    )
+    start = np.datetime64(BASE.replace(tzinfo=None), "ms") + np.timedelta64(minute, "m")
+    return pa.table(
+        {
+            "p_timestamp": pa.array(start + offsets.astype("timedelta64[ms]"), pa.timestamp("ms")),
+            "host": strings(hosts, rng.integers(0, len(hosts), n)),
+            "method": strings(methods, rng.integers(0, len(methods), n)),
+            "path": strings(paths, rng.integers(0, len(paths), n)),
+            "message": message,
+            "status": pa.array(statuses[rng.integers(0, len(statuses), n)]),
+            "bytes": pa.array(rng.integers(100, 50_000, n).astype(np.float64)),
+            "latency_ms": pa.array(rng.random(n) * 500),
+        }
+    )
+
+
+# The card reads latency_ms as f32: rounding a value moves its group's
+# stddev by up to sqrt(n / (n - 1)) * 2^-24 * max|x| (Cauchy-Schwarz over the
+# centred rounding errors), 4.2e-5 for latency_ms below 500, whatever the
+# group's count. A group of two nearly equal values (sd ~ 0.02) is off by
+# more than REL_TOL for that reason alone; the CPU engine reads f64.
+HC_CAST_TOL = {"sd": 2**0.5 * 2.0**-24 * 500}
+
+
+def same_table(name: str, gpu, cpu, keys: tuple) -> None:
+    """Every group of a query without LIMIT, vectorized (10^5-10^6 rows):
+    after sorting both answers on their keys, the keys and counts are
+    equal, NULLs sit where the CPU engine's are, and floats are within
+    ABS_TOL + REL_TOL of the CPU engine's (`same_result`'s tolerances),
+    plus, for a column in HC_CAST_TOL, the bound of its f32 input rounding;
+    the groups that need that term are counted in the log."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    check(gpu.num_rows == cpu.num_rows, f"{name}: {gpu.num_rows} rows on gpu vs {cpu.num_rows} on cpu")
+    check(sorted(gpu.column_names) == sorted(cpu.column_names), f"{name}: columns differ")
+    order = [(k, "ascending") for k in keys]
+    a, b = gpu.sort_by(order), cpu.sort_by(order)
+    for col in cpu.column_names:
+        x, y = a[col], b[col]
+        check(pc.all(pc.equal(pc.is_null(x), pc.is_null(y))).as_py(), f"{name}.{col}: NULLs differ")
+        if col in keys or not pa.types.is_floating(y.type):
+            check(pc.all(pc.equal(x.cast(y.type), y)).as_py() is not False,
+                  f"{name}.{col}: values differ")
+            continue
+        xn = np.asarray(x.cast(pa.float64()).fill_null(0.0).to_numpy())
+        yn = np.asarray(y.cast(pa.float64()).fill_null(0.0).to_numpy())
+        err = np.abs(xn - yn)
+        tol = ABS_TOL + REL_TOL * np.abs(yn)
+        bad = err > tol + HC_CAST_TOL.get(col, 0.0)
+        check(not bad.any(), f"{name}.{col}: {int(bad.sum())} values off, e.g. gpu "
+              f"{xn[bad][:3].tolist()} vs cpu {yn[bad][:3].tolist()}")
+        if col in HC_CAST_TOL:
+            log(f"phase 10 {name}.{col}: {int((err > tol).sum())} of {len(err)} groups past "
+                f"ABS_TOL + REL_TOL, all within the f32 input bound {HC_CAST_TOL[col]:.3g} "
+                f"(largest error {err.max():.3g})")
+
+
+def same_top(name: str, gpu, cpu, keys: tuple, order_col: str, lookup) -> None:
+    """A LIMIT query: the ORDER BY column's values in order, and each
+    returned group's row equal to the CPU engine's row for that group
+    (`same_result`'s tolerances). The card orders by f32 sums and the CPU
+    engine by f64 ones, and either engine picks any of the groups tied at
+    the cut: a returned group the CPU engine did not return is looked up
+    (`lookup(groups)` -> its rows on the CPU engine) and held to its row
+    there, no looser."""
+    g_rows, c_rows = gpu.to_pylist(), cpu.to_pylist()
+    check(len(g_rows) == len(c_rows), f"{name}: {len(g_rows)} rows on gpu vs {len(c_rows)} on cpu")
+    for i, (ra, rb) in enumerate(zip(g_rows, c_rows)):
+        va, vb = ra[order_col], rb[order_col]
+        check(abs(va - vb) <= ABS_TOL + REL_TOL * abs(vb),
+              f"{name}: {order_col} of row {i}: gpu {va} vs cpu {vb}")
+    want = {tuple(r[k] for k in keys): r for r in c_rows}
+    apart = [tuple(r[k] for k in keys) for r in g_rows if tuple(r[k] for k in keys) not in want]
+    if apart:
+        want.update(lookup(apart))
+    for r in g_rows:
+        group = tuple(r[k] for k in keys)
+        check(group in want, f"{name}: the CPU engine has no group {group}")
+        for col, va in r.items():
+            vb = want[group][col]
+            if isinstance(va, float) and isinstance(vb, float):
+                check(abs(va - vb) <= ABS_TOL + REL_TOL * abs(vb), f"{name}.{col} {group}: {va} vs {vb}")
+            else:
+                check(va == vb, f"{name}.{col} {group}: gpu {va!r} vs cpu {vb!r}")
+    if apart:
+        log(f"phase 10 {name}: {len(apart)} group(s) at the cut picked apart from the CPU "
+            f"engine's (ties or f32 near-ties), each equal to its CPU row: {apart}")
+
+
+def k8_exact(torch, K, acc, rows: dict, what: str) -> int:
+    """K8 against its plain version on the card, bit for bit in the ids and
+    the gathered columns, for each kind in `rows` ({kind: (value row, pac
+    row, M2 row)}), both orders, and k of 1, 10 and TOPK_MAX_K; returns the
+    cases checked."""
+    n = 0
+    for kind, (val, pac, sq) in rows.items():
+        for desc in (True, False):
+            for k in (1, 10, K.TOPK_MAX_K):
+                out, idx = K.topk_groups(acc, kind, val, pac, sq, desc, k)
+                pout, pidx = K.topk_groups_plain(acc, kind, val, pac, sq, desc, k)
+                check(torch.equal(idx, pidx) and torch.equal(out.view(torch.int32), pout.view(torch.int32)),
+                      f"K8 not exact: {what} {kind} {'desc' if desc else 'asc'} k={k}")
+                n += 1
+    return n
+
+
+def topk_case(torch, K, timer, acc, kind: str, val: int, pac: int, sq: int, desc: bool,
+              k: int, inputs: str) -> dict:
+    """K8 vs its plain version, bit for bit, then timed L2-cold and L2-warm
+    beside its plain version and the library's pick: torch.topk over the
+    same int32 scores plus one index_select gather. Bound: the rows its
+    score reads once, the k columns gathered and written, the k ids."""
+    r, g = acc.shape
+    res = {"shape": f"R={r} G={g} k={k} {kind} {'desc' if desc else 'asc'}", "inputs": inputs,
+           "regime": None}
+    k8_exact(torch, K, acc, {kind: (val, pac, sq)}, inputs)
+    res["max_abs_err"] = 0.0
+    read = {0, pac, val} | ({sq} if kind in ("var", "stddev") else set())
+    nbytes = 4 * g * len(read) + 2 * 4 * r * k + 4 * k
+    copies = n_copies(nbytes)
+    sets = [acc] + [acc.clone() for _ in range(copies - 1)]
+    scores = [K.scores_plain(a, kind, val, pac, sq, desc) for a in sets]
+    fns = {
+        "ms": lambda j: K.topk_groups(sets[j], kind, val, pac, sq, desc, k),
+        "plain_ms": lambda j: K.topk_groups_plain(sets[j], kind, val, pac, sq, desc, k),
+        "library_ms": lambda j: sets[j].index_select(1, torch.topk(scores[j], k).indices),
+    }
+    res.update(timed(timer, fns, copies))
+    per_kernel, seen = profiled_ms(torch, fns["ms"], (KERNEL_SYMBOLS["topk_groups"],))
+    # one call is 12 launches (score, 8 select passes, compact, sort, gather)
+    res["profiler_ms"] = per_kernel * seen / 10 if per_kernel else None
+    res["profiler_kernels"] = seen
+    res["sum_ms"] = stream_sum_ms(torch, timer, nbytes)
+    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 8 * g)
+    res["bytes"] = nbytes
+    res["copies"] = copies
+    return res
+
+
+def drive_highcard(torch, seed: int, timer, device=None) -> tuple[dict, dict | None, "K3Recorder",
+                                                                 dict]:
+    """Phase 10: high cardinality. A lake of bench.py's "highcard" profile
+    (8 one-minute files of 2^20 rows, a stream of its own) and HC_QUERIES on
+    the "gpu" engine (on `device`, default the card) cold, disk-warm and
+    device-warm, and on the "cpu" engine: the same answers (`same_table`,
+    `same_top`), no block off the card, the local queries block-local
+    (`device_local`), K8 launched by hc_topk_path. On the card, K8 against
+    its plain version on hc_topk_path's own accumulator and on
+    `topk_hazard_acc`, bit for bit, then timed on that accumulator
+    (`topk_case`). Returns the phase's launch counts, K8's timing (None off
+    the card), the queries' K3 calls, and each query's first call of A, B
+    and K7 at each shape, inputs cloned, with its call count."""
+    import numpy as np
+
+    from parseable_tpu_torch.ops import fold_cuda as F
+    from parseable_tpu_torch.ops import groupby_cuda as G
+    from parseable_tpu_torch.ops import stats_cuda as SC
+    from parseable_tpu_torch.ops import topk_cuda as K
+    from parseable_tpu_torch.ops.enccache import shutdown_enccache
+    from parseable_tpu_torch.ops.hotset import get_hotset
+    from parseable_tpu_torch.query.session import QuerySession
+
+    on_card = device is None or torch.device(device).type == "cuda"
+    work = ROOT / "build" / "smoke_hc"
+    shutil.rmtree(work, ignore_errors=True)
+    counts = kernel_counters()
+    recorded: dict[str, tuple] = {}
+    current = [None]
+    real_topk = K.topk_groups
+    real = {"additive_groupby": G.additive_groupby, "minmax_groupby": G.minmax_groupby,
+            "centered_m2": SC.centered_m2}
+    # {kernel: {(query, shape): [its first call's inputs, cloned, calls]}}
+    calls: dict[str, dict] = {name: {} for name in real}
+
+    def rec_topk(acc, *args):
+        if current[0] not in recorded:
+            recorded[current[0]] = (acc.clone(), *args)
+        return real_topk(acc, *args)
+
+    def record(name, key, tensors):
+        seen = calls[name].setdefault((current[0], key), [None, 0])
+        if seen[0] is None:
+            seen[0] = tuple(t.clone() for t in tensors)
+        seen[1] += 1
+
+    def rec_a(ids, rows, g, **kw):
+        record("additive_groupby", (rows.shape[0], rows.shape[1], g), (ids, rows))
+        return real["additive_groupby"](ids, rows, g, **kw)
+
+    def rec_b(ids, vals, valid, mask, g, n_min, **kw):
+        record("minmax_groupby", (vals.shape[0], n_min, vals.shape[1], g), (ids, vals, valid, mask))
+        return real["minmax_groupby"](ids, vals, valid, mask, g, n_min, **kw)
+
+    def rec_k7(ids, vals, valid, mask, mean, **kw):
+        record("centered_m2", (vals.shape[0], vals.shape[1], mean.shape[1]),
+               (ids, vals, valid, mask, mean))
+        return real["centered_m2"](ids, vals, valid, mask, mean, **kw)
+
+    p = None
+    try:
+        p = build_lake(work, seed + 10, HC_MINUTES, N_BLOCK, HC_STREAM, make_hc_minute, "phase 10")
+        reset_launches(counts)
+        K.topk_groups = rec_topk
+        G.additive_groupby, G.minmax_groupby, SC.centered_m2 = rec_a, rec_b, rec_k7
+        with K3Recorder(F) as k3:
+            for qname, (sql, keys, order_col) in HC_QUERIES.items():
+                k3.query = current[0] = qname
+                text = sql.format(stream=HC_STREAM)
+
+                def lookup(groups, keys=keys, text=text):
+                    # the query itself, restricted to `groups`, without ORDER BY and LIMIT
+                    conds = " AND ".join(
+                        f"{k} IN ({', '.join(repr(str(g[i])) for g in groups)})"
+                        for i, k in enumerate(keys))
+                    head, tail = text.split(" GROUP BY ", 1)
+                    q = f"{head} WHERE {conds} GROUP BY {tail.split(' ORDER BY ', 1)[0]}"
+                    rows = QuerySession(p, engine="cpu").query(q).table.to_pylist()
+                    return {tuple(r[k] for k in keys): r for r in rows}
+
+                if order_col is None:
+                    def compare(n, g, c, keys=keys):
+                        same_table(n, g, c, keys)
+                else:
+                    def compare(n, g, c, keys=keys, order_col=order_col, lookup=lookup):
+                        same_top(n, g, c, keys, order_col, lookup)
+
+                before = launch_counts(counts)
+                out = state_runs(torch, p, qname, text, "phase 10", device, states=HC_STATES,
+                                 compare=compare)
+                delta = {k: v - before[k] for k, v in launch_counts(counts).items()}
+                for res in out:
+                    r = res.stats["device_routes"]
+                    check((r["device_local"] > 0) == (qname in HC_LOCAL),
+                          f"{qname}: device_local {r['device_local']}")
+                if on_card:
+                    check(delta["mask_ids"] > 0 and delta["additive_groupby"] > 0,
+                          f"{qname}: a kernel never launched {delta}")
+                    check((delta["topk_groups"] > 0) == (qname == "hc_topk_path"),
+                          f"{qname}: K8 launches {delta['topk_groups']}")
+                    if qname == "hc_minute_path":
+                        check(delta["minmax_groupby"] > 0 and delta["centered_m2"] > 0,
+                              f"{qname}: B or K7 never launched {delta}")
+                log(f"phase 10 {qname}: gpu == cpu in {len(HC_STATES)} cache states, "
+                    f"launches {delta}")
+    finally:
+        K.topk_groups = real_topk
+        G.additive_groupby, G.minmax_groupby = real["additive_groupby"], real["minmax_groupby"]
+        SC.centered_m2 = real["centered_m2"]
+        if p is not None:
+            p.shutdown()
+        get_hotset().clear()
+        shutdown_enccache()
+        shutil.rmtree(work, ignore_errors=True)
+    launches = launch_counts(counts)
+    log(f"phase 10 launches: {launches}")
+    if not on_card:
+        return launches, None, k3, calls
+    # K8 on the card: hc_topk_path's own accumulator, every kind scoring the
+    # rows the query's call read (its value row also as the M2 row), then the
+    # hazard set, bit for bit
+    acc, kind, val, pac, sq, desc, k = recorded["hc_topk_path"]
+    n_own = k8_exact(torch, K, acc, dict.fromkeys(K.KINDS, (val, pac, val)),
+                     "hc_topk_path's accumulator")
+    hazard = torch.from_numpy(topk_hazard_acc(np, np.random.default_rng(seed), 12, acc.shape[1], 5))
+    n_hazard = k8_exact(torch, K, hazard.cuda(), dict.fromkeys(K.KINDS, (6, 3, 9)), "hazard set")
+    log(f"phase 10 K8 exact: {n_own} cases on hc_topk_path's accumulator {tuple(acc.shape)}, "
+        f"{n_hazard} on the hazard set (ties, NaN, +-inf, +-3.4e38, +-0.0, subnormals, NULL "
+        f"aggregates, empty slots)")
+    res = topk_case(torch, K, timer, acc, kind, val, pac, sq, desc, k, "main path")
+    log(f"phase 10 topk_groups {json.dumps(res)}")
+    return launches, res, k3, calls
+
 
 # ------------------------------------------------------------------ server
 
@@ -1929,10 +2336,9 @@ def server_queries(torch, G, server, want: dict, where: str, profile_status: boo
     oracle and against the port's CPU engine over the same directories;
     every GPU answer stays on the device. Optionally one more warm run of
     the status query under torch.profiler for the device's idle share."""
-    from parseable_tpu_torch.ops import fold_cuda as F
     from parseable_tpu_torch.query.session import QuerySession
 
-    counts = (G.LAUNCHES, F.LAUNCHES)
+    counts = kernel_counters()
     walls: dict[str, dict] = {}
     for qname, sql in SERVER_QUERIES.items():
         text = sql.format(stream=STREAM)
@@ -1960,6 +2366,8 @@ def server_queries(torch, G, server, want: dict, where: str, profile_status: boo
                   f"{where} {qname}: a kernel never launched {delta}")
             if qname == "status":
                 check(delta["minmax_groupby"] > 0, f"{where} {qname}: kernel B never launched")
+            check((delta["topk_groups"] > 0) == (qname == "topk_multicol"),
+                  f"{where} {qname}: K8 launches {delta['topk_groups']}")
         log(f"phase 6 {where} {qname}: == oracle == cpu engine, launches {delta}")
     if profile_status:
         from torch.profiler import ProfilerActivity, profile
@@ -2042,6 +2450,7 @@ def drive_server(torch, G, seed: int, device=None) -> dict:
 
     from parseable_tpu_torch.config import Options, StorageOptions
     from parseable_tpu_torch.ops import fold_cuda as F
+    from parseable_tpu_torch.ops import topk_cuda as K
     from parseable_tpu_torch.server import ingest_utils as IU
     from parseable_tpu_torch.server.app import start_server
 
@@ -2067,7 +2476,7 @@ def drive_server(torch, G, seed: int, device=None) -> dict:
             return opts
 
         storage = StorageOptions(root=work / "data")
-        counts = (G.LAUNCHES, F.LAUNCHES)
+        counts = kernel_counters()
         reset_launches(counts)
         # first start: ticks longer than the phase, so the rows stay staged
         on_card = device is None
@@ -2120,8 +2529,8 @@ def drive_server(torch, G, seed: int, device=None) -> dict:
         log(f"phase 6 launches on the server path: {launches}")
         log("phase 6 HTTP query wall s: " + json.dumps({"staging": staging_walls, "lake": lake_walls}))
         if on_card:
-            for name, n in launches.items():
-                check(n > 0, f"{name} was never launched on the server path")
+            for name in (*G.LAUNCHES, *F.LAUNCHES, *K.LAUNCHES):
+                check(launches[name] > 0, f"{name} was never launched on the server path")
             boot_module(work, acked)
         return launches
     finally:
@@ -2151,6 +2560,7 @@ def main() -> int:
         from parseable_tpu_torch.ops import fold_cuda as F
         from parseable_tpu_torch.ops import groupby_cuda as G
         from parseable_tpu_torch.ops import stats_cuda as SC
+        from parseable_tpu_torch.ops import topk_cuda as K
         from parseable_tpu_torch.ops.enccache import shutdown_enccache
         from parseable_tpu_torch.ops.hotset import get_hotset
         from parseable_tpu_torch.utils.devicecheck import probe
@@ -2188,7 +2598,7 @@ def main() -> int:
 
     with ThreadPoolExecutor(max_workers=1) as pool:
         native_built = pool.submit(load_native)
-        built = cuda_lib.build_all([G.LIBRARY, SC.LIBRARY, F.LIBRARY])
+        built = cuda_lib.build_all([G.LIBRARY, SC.LIBRARY, F.LIBRARY, K.LIBRARY])
         native_s = native_built.result()
     log(f"phase 1 build: kernels built and loaded in {built:.3f} s, the native ingest "
         f"library in {native_s:.3f} s ({native.library_path().name})")
@@ -2213,6 +2623,20 @@ def main() -> int:
         res = stats_case(torch, SC, timer, kind, key, stats_inputs(torch, SC, kind, key, gen),
                          "uniform", regime=regime, turns=turns)
         log(f"phase 2 {kind} {json.dumps(res)}")
+    # the block-local fold's group counts: A "global", B's decode launch, K7
+    # "global", which the dense path never reaches past 65,536 groups
+    for g in (1 << 17, 1 << 20, 1 << 22):
+        res = kernel_a_case(torch, G, timer, *uniform_a(torch, 3, N_BLOCK, g, gen), g, "uniform")
+        check(res["regime"] == "global", f"kernel A at G={g}: {res['regime']}")
+        log(f"phase 2 additive_groupby (local fold) {json.dumps(res)}")
+        res = kernel_b_case(torch, G, timer, *uniform_b(torch, 2, N_BLOCK, g, gen), g, 1, "uniform")
+        check(res["decode"] == "launch", f"kernel B at G={g}: decode {res['decode']}")
+        log(f"phase 2 minmax_groupby (local fold) {json.dumps(res)}")
+        key = (1, N_BLOCK, g)
+        res = stats_case(torch, SC, timer, "centered_m2", key,
+                         stats_inputs(torch, SC, "centered_m2", key, gen), "uniform")
+        check(res["regime"] == "global", f"K7 at G={g}: {res['regime']}")
+        log(f"phase 2 centered_m2 (local fold) {json.dumps(res)}")
     edge_cases(torch, G, gen)
     rule_sweep(torch, G, timer, gen)
     k3_hazards(torch, F, timer, args.seed)
@@ -2244,6 +2668,10 @@ def main() -> int:
         shutdown_enccache()
         shutil.rmtree(work, ignore_errors=True)
 
+    # -- phase 10: high cardinality, on a lake of its own
+    hc_launches, k8_case, k3_hc, hc_calls = drive_highcard(torch, args.seed, timer)
+    phase_done("10 high cardinality")
+
     # -- phase 6: the HTTP server, ingest and queries, on the card
     server_launches = drive_server(torch, G, args.seed)
     phase_done("6 server")
@@ -2269,12 +2697,21 @@ def main() -> int:
         **dict.fromkeys(STATS_KERNELS, "parseable_tpu_torch/csrc/stats.cu"),
         **dict.fromkeys(K3_KERNELS, "parseable_tpu_torch/csrc/fold.cu"),
     }
+    by_phase = {"lake": launches, "stats": stats_launches, "server": server_launches,
+                "pressure": pressure_launches, "highcard": hc_launches}
+
+    def phase_launches(name: str) -> dict:
+        # each phase's own count of the kernel's launches
+        return {f"launches_{phase}": counted[name] for phase, counted in by_phase.items()}
+
     for name in ("additive_groupby", "minmax_groupby", *STATS_KERNELS, *K3_KERNELS):
         cases = []
-        for rec in (k3_main, k3_stats) if name in K3_KERNELS else ():
-            # each phase-4/7 query's own block, on the inputs it gave the kernel
+        k3_recs = ((k3_main, "main path"), (k3_stats, "main path"), (k3_hc, "main path, phase 10"))
+        for rec, kind in k3_recs if name in K3_KERNELS else ():
+            # each phase-4/7/10 query's own block, on the inputs it gave the
+            # kernel (the line reports phase 4 and 7's heaviest)
             for qname, data in rec.inputs[name].items():
-                res = k3_case(torch, F, timer, name, data, "main path")
+                res = k3_case(torch, F, timer, name, data, kind)
                 res["query"], res["main_path_calls"] = qname, rec.shapes[name][qname]
                 log(f"phase 5 {name} {json.dumps(res)}")
                 cases.append(res)
@@ -2307,6 +2744,18 @@ def main() -> int:
                 res["main_path_calls"] = calls
                 log(f"phase 5 {name} {json.dumps(res)}")
                 cases.append(res)
+        for (qname, key), (data, calls) in hc_calls.get(name, {}).items():
+            # each phase-10 query's first call at each shape, on its own inputs
+            kind = "main path, phase 10"
+            if name == "additive_groupby":
+                res = kernel_a_case(torch, G, timer, *data, key[2], kind)
+            elif name == "minmax_groupby":
+                res = kernel_b_case(torch, G, timer, *data, key[3], key[1], kind)
+            else:
+                res = stats_case(torch, SC, timer, name, key, data, kind)
+            res["query"], res["main_path_calls"] = qname, calls
+            log(f"phase 5 {name} {json.dumps(res)}")
+            cases.append(res)
         # the line reports the main path's heaviest shape, on its own inputs
         top = max((c for c in cases if c["inputs"] == "main path"), key=lambda c: c["bound_ms"])
         report.append(
@@ -2317,10 +2766,7 @@ def main() -> int:
                 "replaces": replaces[name],
                 # phase 4's count for A, B and K3, phase 7's for K5-K7
                 "launches": stats_launches[name] if name in STATS_KERNELS else launches[name],
-                "launches_lake": launches.get(name, 0),
-                "launches_stats": stats_launches[name],
-                "launches_server": server_launches.get(name, 0),
-                "launches_pressure": pressure_launches.get(name, 0),
+                **phase_launches(name),
                 "max_abs_err": top["max_abs_err"],
                 "ms": top["ms"],
                 "plain_ms": top["plain_ms"],
@@ -2335,6 +2781,22 @@ def main() -> int:
                 "sum_ms": top["sum_ms"],
             }
         )
+    # K8: timed in phase 10 on hc_topk_path's own accumulator; its launches
+    # are phase 4's (topk_multicol)
+    report.append(
+        {
+            "name": "topk_groups",
+            "route": "cuda",
+            "source": "parseable_tpu_torch/csrc/topk.cu",
+            "replaces": "parseable_tpu/query/executor_tpu.py:2165",
+            "launches": launches["topk_groups"],
+            **phase_launches("topk_groups"),
+            **{k: k8_case[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                       "library_ms", "shape", "regime", "ms_l2_warm",
+                                       "profiler_ms", "sum_ms")},
+            "inputs": "main path (phase 10 hc_topk_path), L2-cold",
+        }
+    )
     phase_done("5 kernel times")
     # the work dirs are gone, and nothing the run did (phase 5's executors
     # are built without options) rooted a link profile or an encoded-block

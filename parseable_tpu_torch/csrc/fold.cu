@@ -20,7 +20,10 @@
 //   NOT e is (known & ~value, known). Key instructions add code * stride
 //   into the row's id: a dictionary remap gather with an upper clamp only,
 //   or a time bin clamp(floor((ts + shift) / bin) + k_off, 0, cap - 1) in
-//   wrapping int32 arithmetic with a floor (not C's truncating) division.
+//   wrapping int32 arithmetic with a floor (not C's truncating) division,
+//   or (KEY_CODE) the slot's own code with an upper clamp, no remap: the
+//   block-local fold of a high-cardinality GROUP BY (JAX _get_local_program
+//   .fold, executor_tpu.py:2473, ids at :2493-2500).
 // k3_stack_operands (K3b): kernel A's row matrix [mask | valid&mask rows |
 //   masked values] (f32), kernel B's value rows (f32) and validity rows
 //   (u8), and the liveness rows of K5-K7, in the order of executor_cuda's
@@ -82,7 +85,7 @@ constexpr unsigned kAll = (1u << kRun) - 1u;
 // opcodes (fold_cuda.py): leaves push one (value, known) pair
 enum Op {
   kLut = 1, kCmpF32, kCmpI32, kInF32, kNotInF32, kIsNull, kNotNull, kConst,
-  kAnd, kOr, kNot, kKeyDict, kKeyTime, kCmpF64, kInF64, kNotInF64,
+  kAnd, kOr, kNot, kKeyDict, kKeyTime, kCmpF64, kInF64, kNotInF64, kKeyCode,
 };
 enum RowOp { kRowMask = 1, kRowLive, kRowMasked, kRowValue };
 enum RowFlag { kNanAware = 1, kBoolOut = 2 };
@@ -403,6 +406,17 @@ __global__ void __launch_bounds__(kThreads)
             id[i] = (int)((unsigned)id[i] + (unsigned)(r < top ? r : top) * (unsigned)in[5]);
           }
           continue;  // keys push nothing
+        }
+        case kKeyCode: {
+          if (ids == nullptr) continue;
+          int c[kRun];
+          load_as<int, kVec>(slots, slot, base, n, c);
+          const int top = in[2] - 1;
+#pragma unroll
+          for (int i = 0; i < kRun; ++i) {
+            id[i] = (int)((unsigned)id[i] + (unsigned)(c[i] < top ? c[i] : top) * (unsigned)in[3]);
+          }
+          continue;
         }
         case kKeyTime: {
           if (ids == nullptr) continue;

@@ -31,7 +31,10 @@ Both interpret one PROGRAM, a small int32 array the host builds per block
   capacity, d: stride) adds min(remap[code], cap - 1) * stride to the row's
   id; KEY_TIME (a: shift, b: bin ms, c: bin offset, d: capacity, e: stride)
   adds clamp(floor((ts + shift) / bin) + k_off, 0, cap - 1) * stride, in
-  wrapping int32 arithmetic. The verdict is the value left on the stack;
+  wrapping int32 arithmetic; KEY_CODE (a: capacity, b: stride) adds
+  min(code, cap - 1) * stride of the slot's own codes, with no remap (the
+  block-local fold of high-cardinality GROUP BYs). The verdict is the value
+  left on the stack;
 - operand rows, 4 words each: [row op, slot, flags, output row]: MASK,
   LIVE (mask & valid, & not NaN with NAN_AWARE), MASKED (x where live, else
   0), VALUE (x); BOOL_OUT writes the bool matrix, else the f32 one. They
@@ -84,7 +87,7 @@ MAX_OPS = 128  # csrc kMaxOps
 MAX_SLOTS = 16  # csrc kMaxSlots
 
 (LUT, CMP_F32, CMP_I32, IN_F32, NOT_IN_F32, IS_NULL, NOT_NULL, CONST,
- AND, OR, NOT, KEY_DICT, KEY_TIME, CMP_F64, IN_F64, NOT_IN_F64) = range(1, 17)
+ AND, OR, NOT, KEY_DICT, KEY_TIME, CMP_F64, IN_F64, NOT_IN_F64, KEY_CODE) = range(1, 18)
 ROW_MASK, ROW_LIVE, ROW_MASKED, ROW_VALUE = range(1, 5)
 NAN_AWARE, BOOL_OUT = 1, 2
 CMP = {"=": 0, "!=": 1, "<": 2, "<=": 3, ">": 4, ">=": 5}
@@ -212,6 +215,9 @@ class Program:
     def key_time(self, slot: int, shift: int, bin_ms: int, k_off: int, cap: int, stride: int) -> None:
         self._emit(KEY_TIME, slot, shift, bin_ms, k_off, cap, stride)
 
+    def key_code(self, slot: int, cap: int, stride: int) -> None:
+        self._emit(KEY_CODE, slot, cap, stride)
+
     # operand rows (K3b)
     def row(self, op: int, slot: int = 0, *, nan_aware: bool = False, bool_out: bool = False) -> int:
         """Append an operand row; returns its index in its matrix."""
@@ -329,6 +335,8 @@ def mask_ids_plain(
             remap = _data(words, data_at + a, b, torch.int32).to(torch.int64)
             code = remap[slots[slot][0].to(torch.int64) & (b - 1)]
             ids += torch.clamp(code, max=c - 1) * d
+        elif op == KEY_CODE:
+            ids += torch.clamp(slots[slot][0].to(torch.int64), max=a - 1) * b
         elif op == KEY_TIME:
             x = _wrap32(slots[slot][0].to(torch.int64) + a)
             binned = _wrap32(torch.div(x, b, rounding_mode="floor") + c)

@@ -1,14 +1,16 @@
 """Device operators for the query engine, in PyTorch.
 
 Counterpart of `parseable_tpu/ops/kernels.py`: `lut_mask` (:38),
-`masked_distinct_bitmap` (:51) and `fused_groupby_block` (:108), with the
-same signatures and output shapes.
+`masked_distinct_bitmap` (:51), `topk` (:71) and `fused_groupby_block`
+(:108), with the same signatures and output shapes.
 Group-by is dense: group keys arrive pre-combined into one int32 id in
 [0, num_groups), filters arrive as masks, and every reduction weights by the
 mask instead of compacting rows.
 
 `masked_distinct_bitmap` runs on the distinct kernel (K5) of
-`ops/stats_cuda.py`.
+`ops/stats_cuda.py`. `topk` is the plain pick of the device top-k: the
+kernel K8 (`ops/topk_cuda.py`) selects on the card, and its plain version
+calls this one.
 
 `fused_groupby_block` runs one block's whole partial aggregate through the
 hand kernels of `ops/groupby_cuda.py`: the additive rows (row count,
@@ -26,7 +28,7 @@ import torch
 from parseable_tpu_torch.ops.groupby_cuda import F32_MAX, additive_groupby, minmax_groupby
 from parseable_tpu_torch.ops.stats_cuda import distinct_fold
 
-__all__ = ["F32_MAX", "fused_groupby_block", "lut_mask", "masked_distinct_bitmap"]
+__all__ = ["F32_MAX", "fused_groupby_block", "lut_mask", "masked_distinct_bitmap", "topk"]
 
 
 def lut_mask(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
@@ -57,6 +59,15 @@ def masked_distinct_bitmap(
         group_ids = group_ids.to(torch.int32)
     acc = torch.zeros(num_groups * num_values, dtype=torch.float32, device=mask.device)
     return distinct_fold(acc, group_ids, value_codes, mask, num_values).view(num_groups, num_values)
+
+
+def topk(values: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k of a 1-D tensor -> (values [k], indices int64 [k]), largest
+    first and, as `lax.top_k`, the lower index first among equal values: a
+    stable descending sort keeps equal values in index order. For int32
+    scores (the device top-k's) and floats without NaN."""
+    order = torch.sort(values, descending=True, stable=True).indices[:k]
+    return values[order], order
 
 
 def fused_groupby_block(

@@ -6,12 +6,16 @@ list, HAVING, ORDER BY and LIMIT. The GPU engine (`executor_cuda.py`)
 subclasses it: device kernels produce the partials, and the host finalize
 and `_order_limit` stay shared.
 
-This slice keeps the classic per-block hash aggregate (the JAX package's
-two-phase partials path is later work) and every aggregate, with the same
-sketches as the JAX engine: approximate percentiles in a `QuantileSketch`
-per group (`query/sketch.py`, exact below 1024 values) and approx_distinct
-in HLL registers (`ops/hll_sketch.py`). Window functions are later work and
-raise ExecError here.
+A GROUP BY whose aggregates all have a partial form (count, sum, avg,
+min, max, stddev, var) runs two-phase, as the JAX engine does
+(`parseable_tpu/query/executor.py:1184-1220`): each block folds into a
+partial table through one pyarrow group_by, and ONE vectorized merge
+(`query/partials.py`) follows, so a 1M-group query has no per-group Python.
+Every other aggregate keeps the classic per-block hash aggregate, with the
+same sketches as the JAX engine: approximate percentiles in a
+`QuantileSketch` per group (`query/sketch.py`, exact below 1024 values)
+and approx_distinct in HLL registers (`ops/hll_sketch.py`). Window
+functions are later work and raise ExecError here.
 """
 
 from __future__ import annotations
@@ -26,7 +30,14 @@ import pyarrow as pa
 import pyarrow.compute as pc
 
 from parseable_tpu_torch.ops.hll_sketch import estimate, merge_registers, registers_add
+from parseable_tpu_torch.query import partials as PT
 from parseable_tpu_torch.query import sql as S
+from parseable_tpu_torch.query.partials import (
+    _combine_codes,
+    _encode_key,
+    _FastPathUnavailable,
+    decode_dictionary_columns,
+)
 from parseable_tpu_torch.query.sketch import QuantileSketch
 from parseable_tpu_torch.query.planner import LogicalPlan
 from parseable_tpu_torch.utils.timeutil import parse_duration, parse_rfc3339, time_ticks
@@ -532,55 +543,6 @@ def _collect_aggs(e: S.Expr, out: list[AggSpec], counter: list[int]) -> S.Expr:
     return e
 
 
-class _FastPathUnavailable(Exception):
-    pass
-
-
-_MAX_COMBINED = 1 << 62  # combined-code capacity guard
-
-
-def _encode_key(arr: pa.ChunkedArray | pa.Array) -> tuple[np.ndarray, pa.Array]:
-    """One key column -> (codes int64, dict); null rows code len(dict).
-    Copy of `parseable_tpu/query/partials.py:_encode_key`."""
-    if isinstance(arr, pa.ChunkedArray):
-        arr = arr.combine_chunks()
-    try:
-        denc = arr if pa.types.is_dictionary(arr.type) else pc.dictionary_encode(arr)
-    except pa.ArrowNotImplementedError as e:
-        raise _FastPathUnavailable(str(e)) from e
-    if isinstance(denc, pa.ChunkedArray):
-        denc = denc.combine_chunks()
-    dictionary = denc.dictionary
-    idx = denc.indices
-    codes = pc.fill_null(idx, 0).to_numpy(zero_copy_only=False).astype(np.int64)
-    if idx.null_count:
-        codes = codes.copy()
-        codes[~np.asarray(idx.is_valid())] = len(dictionary)
-    if dictionary.null_count:
-        # null VALUES inside a dictionary collapse into the null code
-        valid = np.asarray(dictionary.is_valid())
-        clean = dictionary.drop_null()
-        lut = np.concatenate(
-            [np.where(valid, np.cumsum(valid, dtype=np.int64) - 1, len(clean)), [len(clean)]]
-        )
-        codes = lut[codes]
-        dictionary = clean
-    return codes, dictionary
-
-
-def _combine_codes(codes_list: list[np.ndarray], sizes: list[int]) -> np.ndarray:
-    """codes -> single int64, LAST key least-significant."""
-    prod = 1
-    for size in sizes:
-        prod *= size
-        if prod > _MAX_COMBINED:
-            raise _FastPathUnavailable("combined group-code space exceeds int64")
-    combined = codes_list[0]
-    for codes, size in zip(codes_list[1:], sizes[1:]):
-        combined = combined * size + codes
-    return combined
-
-
 @dataclass
 class GroupState:
     count: list[int]
@@ -1073,6 +1035,24 @@ class QueryExecutor:
 
     def _execute_aggregate(self, tables: Iterator[pa.Table]) -> pa.Table:
         agg, rewritten, group_names = self.build_aggregator()
+        sel = self.plan.select
+        if sel.group_by and PT.specs_partializable(agg.specs):
+            # two-phase: per-block pyarrow partials + ONE vectorized merge, no
+            # per-group Python, so a 1M-group query does not cliff
+            parts: list[pa.Table] = []
+            for table in tables:
+                self._check_deadline()
+                table = self._bounds_filter(table)
+                mask = self._where_mask(table)
+                if mask is not None:
+                    table = table.filter(mask)
+                pt = PT.partial_from_block(table, sel.group_by, agg.specs)
+                if pt is not None:
+                    parts.append(pt)
+            if parts:
+                interim = PT.merge_partials(parts, agg.specs, len(sel.group_by))
+                return self.finalize_from_interim(interim, rewritten)
+            return self.finalize_aggregate(agg, rewritten, group_names)
         for table in tables:
             self._check_deadline()
             table = self._bounds_filter(table)
@@ -1279,18 +1259,3 @@ def _empty_like(plan: LogicalPlan) -> pa.Table:
     out = {c: pa.array([], type=known.get(c, pa.string())) for c in sorted(cols)}
     return pa.table(out or {"__empty": pa.array([], pa.int64())})
 
-
-def decode_dictionary_columns(table: pa.Table) -> pa.Table:
-    """Materialize dictionary-typed columns as plain values (fallback for
-    arrow kernels without dictionary support)."""
-    cols = []
-    changed = False
-    for col in table.columns:
-        if pa.types.is_dictionary(col.type):
-            cols.append(col.cast(col.type.value_type))
-            changed = True
-        else:
-            cols.append(col)
-    if not changed:
-        return table
-    return pa.table(dict(zip(table.column_names, cols)))

@@ -1,12 +1,14 @@
-"""GPU query executor: predicate + dense group-by aggregation on the card.
+"""GPU query executor: predicate + group-by aggregation on the card.
 
-Counterpart of `parseable_tpu/query/executor_tpu.py`, the dense aggregate
-path and the select path: `_execute_aggregate_tpu` (:1485),
-`_dense_interim` (:2039), the fold of `_get_program`/`fold_one`
-(:2762/:2852), `_flush_state` (:3159), `_transfer` (:3286), the block cache
-(`_encoded_block` :1416, the prefetcher :1304-1365) and
-`_execute_select_tpu` (:1213, without the adaptive host/device gate). Per
-scanned block:
+Counterpart of `parseable_tpu/query/executor_tpu.py`, the aggregate path
+and the select path: `_execute_aggregate_tpu` (:1485), `_dense_interim`
+(:2039), the device top-k (`_device_topk_plan` :2130, `_run_topk_program`
+:2165), the block-local high-cardinality path (`_local_block` :2264,
+`_get_local_program` :2417, the partial helpers :2575-2758), the fold of
+`_get_program`/`fold_one` (:2762/:2852), `_flush_state` (:3159),
+`_transfer` (:3286), the block cache (`_encoded_block` :1416, the
+prefetcher :1304-1365) and `_execute_select_tpu` (:1213), all without the
+adaptive host/device gate and without the mesh. Per scanned block:
 
 1. the block resolves through three tiers (`_encoded_block`): the device
    hot set (`ops/hotset.py`: the block's tensors stay on the card, no
@@ -37,7 +39,21 @@ scanned block:
    (`ops/stats_cuda.py`);
 5. the accumulators are read back once per capacity epoch and finalized on
    the host in f64 through the CPU engine's shared finalize and
-   `_order_limit`.
+   `_order_limit`. An ORDER BY <aggregate> LIMIT k over 2^13 groups or more
+   picks its k groups on the card (kernel K8, `ops/topk_cuda.py`) and reads
+   back only their columns.
+
+High cardinality: past `DENSE_G_MAX` groups the rest of the scan folds
+block-local and two-phase (`_local_block`): each block on its own
+dictionary codes (K3a's KEY_CODE) and its own time bins into a fresh
+block-sized accumulator, through the same kernels, read back once and kept
+as a partial table; where a block's key capacities multiply past
+`LOCAL_G_MAX`, its actual key combinations compact with one np.unique into
+pair codes (pair mode). The dense epoch, the block partials and the host
+fallback's groups merge in ONE pyarrow group_by (`query/partials.py`).
+Capacity epochs without sketch or set state leave as partial tables too;
+a query with count(distinct) or percentiles aggregates the rest of its
+scan on the host past `DENSE_G_MAX`, as in the JAX package.
 
 A plain SELECT with a WHERE runs K3a alone per block, reads the mask back
 at one byte a row and filters the rows on the host; projection, ORDER BY
@@ -47,25 +63,29 @@ evictions.
 
 Shapes outside this slice raise `UnsupportedOnDevice` and take the CPU
 engine, counted in `route_stats["cpu_fallback"]`: aggregates over
-expressions, group spaces beyond `DENSE_G_MAX`, distinct state past 2^24
-(2^27 for HLL) entries, histograms past `PCT_MAX_ELEMS`, distinct over a
-timestamp column, unencodable columns, and WHERE trees the K3 program
-cannot express (per block). A missing or failing card raises; the executor
-never answers a GPU query on the CPU because the card is unavailable. A
-cache miss is not a route off the card.
+expressions, distinct state past 2^24 (2^27 for HLL) entries, histograms
+past `PCT_MAX_ELEMS`, distinct over a timestamp column, unencodable
+columns, and WHERE trees the K3 program cannot express (per block). A
+missing or failing card raises; the executor never answers a GPU query on
+the CPU because the card is unavailable. A cache miss is not a route off
+the card.
 
 Precision: per-block reductions run in f32 (blocks <= 2^22 rows keep counts
 exact; sums carry ~1e-6 relative error against the CPU engine's f64);
-cross-epoch accumulation is f64 on the host. WHERE compares are exact: a
-numeric column that f32 does not hold exactly ships an f64 copy for them,
-and time compares are exact at ms (a sub-ms literal or bound rounds the way
-that keeps the compare exact, as in the CPU engine).
+cross-epoch and cross-block accumulation is f64 on the host. WHERE
+compares are exact: a numeric column that f32 does not hold exactly ships
+an f64 copy for them, and time compares are exact at ms (a sub-ms literal
+or bound rounds the way that keeps the compare exact, as in the CPU
+engine). The device top-k orders by the f32 aggregate: where two groups at
+the cut differ by less than f32 rounding, it may pick another group than
+the CPU engine would.
 """
 from __future__ import annotations
 
 import copy
 import itertools
 import logging
+import math
 import threading
 import time
 from contextlib import contextmanager
@@ -81,7 +101,7 @@ import torch
 from parseable_tpu_torch import DEFAULT_TIMESTAMP_KEY
 from parseable_tpu_torch.config import Options
 from parseable_tpu_torch.ops import fold_cuda as F
-from parseable_tpu_torch.ops import groupby_cuda, stats_cuda
+from parseable_tpu_torch.ops import groupby_cuda, stats_cuda, topk_cuda
 from parseable_tpu_torch.ops.fold_cuda import Program, UnsupportedOnDevice
 from parseable_tpu_torch.ops.device import EncodedBatch, EncodedColumn, encode_table, f64_name
 from parseable_tpu_torch.ops.enccache import get_enccache
@@ -89,6 +109,7 @@ from parseable_tpu_torch.ops.hll_sketch import HLL_M, luts_for_dictionary
 from parseable_tpu_torch.ops.hotset import HotEntry, get_hotset
 from parseable_tpu_torch.ops.link import get_link
 from parseable_tpu_torch.ops.prefetch import ScanPrefetcher
+from parseable_tpu_torch.query import partials as PT
 from parseable_tpu_torch.query import sql as S
 from parseable_tpu_torch.query.executor import AggSpec, HashAggregator, QueryExecutor, _arr, evaluate
 from parseable_tpu_torch.query.planner import LogicalPlan, referenced_columns
@@ -102,9 +123,13 @@ logger = logging.getLogger(__name__)
 # pow2_block's ceiling: tables beyond this split before encoding
 MAX_BLOCK_ROWS = 1 << 22
 # largest dense global group space the device accumulator holds; beyond it
-# the rest of the scan aggregates on the host (block-local high-cardinality
-# aggregation is later work)
+# the rest of the scan folds block-local, two-phase (`_local_block`): each
+# block on its OWN dictionary codes into a block-sized accumulator, read back
+# once as a partial table, and ONE vectorized merge at the end
 DENSE_G_MAX = 1 << 19
+# per-block group-space ceiling in local mode (past it the block's actual key
+# combinations compact with one np.unique: pair mode)
+LOCAL_G_MAX = 1 << 22
 # device percentile budget: one [G, DEVICE_NB] f32 histogram per
 # percentile spec; past it the rest of the scan aggregates on the host
 PCT_MAX_ELEMS = 1 << 24
@@ -716,6 +741,19 @@ class PlanLayout:
 
 
 @dataclass(frozen=True)
+class LocalKeys:
+    """A block's own key space in local mode: per key its capacity and
+    first time bin (0 for a dictionary key), the group count, and in pair
+    mode the block's distinct composite codes (group g decodes from
+    pairs[g], first key major)."""
+
+    caps: tuple[int, ...]
+    origins: tuple[int, ...]
+    num_groups: int
+    pairs: np.ndarray | None = None
+
+
+@dataclass(frozen=True)
 class OperandRows:
     """Where the operands of A, B and K5-K7 sit in K3b's two matrices
     (`_emit_operands` writes them in this order, the AccLayout's):
@@ -932,6 +970,7 @@ class GpuQueryExecutor(QueryExecutor):
             "device_warm": 0,  # hot-set resident: no block bytes shipped
             "device_cold": 0,  # encoded (or read from the enccache) + shipped
             "cpu_fallback": 0,  # unsupported on device
+            "device_local": 0,  # of the device blocks, those folded block-local
             "h2d_bytes": 0,  # block copies and the query's aux copies
             "h2d_aux_bytes": 0,  # of those, the LUT and remap copies
             "d2h_bytes": 0,
@@ -942,9 +981,11 @@ class GpuQueryExecutor(QueryExecutor):
         # ("encode"), encoded-block cache reads ("enccache"), packing + the
         # copies' enqueue ("transfer"), enqueue of the fold's device work
         # ("fold"), and the readback, which waits for the device to
-        # finish, + finalize ("finalize")
+        # finish, + finalize ("finalize"); in local mode the per-block
+        # readback and partial extraction ("local"), pair mode's code
+        # compaction ("pairs"), and the partial merge ("merge")
         self.stage_ms: dict[str, float] = dict.fromkeys(
-            ("encode", "enccache", "transfer", "fold", "finalize"), 0.0
+            ("encode", "enccache", "transfer", "fold", "finalize", "local", "pairs", "merge"), 0.0
         )
         # query-aware prefetch (ops/prefetch.py): built lazily on the first
         # source-id'd block, once the scan has published its ordered stub
@@ -1323,6 +1364,15 @@ class GpuQueryExecutor(QueryExecutor):
                     raise UnsupportedOnDevice(f"distinct over timestamp column {dk.column}")
 
         force_cpu_rest = False
+        # block-local two-phase state (high-cardinality group spaces): partial
+        # tables of the dense epochs and of the local blocks, merged at the end
+        local_mode = False
+        partials: list[pa.Table] = []
+
+        def keep(pt: pa.Table | None) -> None:
+            if pt is not None:
+                partials.append(pt)
+
         for table in self._blocks(tables):
             self._check_deadline()
             try:
@@ -1332,6 +1382,11 @@ class GpuQueryExecutor(QueryExecutor):
                 with self._stage("encode"):
                     prog = Program()
                     compiler.lower(sel.where, enc, prog)
+                if local_mode:
+                    keep(self._local_block(prog, enc, block, route, key_specs, specs, layout, lay,
+                                           bounds_ms))
+                    continue
+                with self._stage("encode"):
                     remaps = []
                     for ks in key_specs:
                         if ks.kind != "dict":
@@ -1350,7 +1405,8 @@ class GpuQueryExecutor(QueryExecutor):
                     HLL_M if sk else self._required_layout(dk, enc)[1]
                     for dk, sk in zip(dkeys, dk_sketch)
                 )
-                new_groups = max(int(np.prod([c for _, c in layouts])), 1)
+                # Python ints: three wide keys would wrap numpy's int64
+                new_groups = max(math.prod(c for _, c in layouts), 1)
                 # the budgets of the JAX engine; caps and the group space only
                 # grow, so no later block fits either: the rest of the scan
                 # aggregates on the host
@@ -1364,15 +1420,36 @@ class GpuQueryExecutor(QueryExecutor):
                     force_cpu_rest = True
                     raise UnsupportedOnDevice("percentile histogram exceeds device budget")
                 if new_groups > DENSE_G_MAX:
-                    force_cpu_rest = True
-                    raise UnsupportedOnDevice(f"group space {new_groups} > {DENSE_G_MAX}")
+                    # the dense group space outgrew the device budget: the rest
+                    # of the scan folds block-local (two-phase, exact), except
+                    # where sketch or set state needs the global group space
+                    if dkeys or lay.pct_idx:
+                        force_cpu_rest = True
+                        raise UnsupportedOnDevice(
+                            "high-cardinality group space with sketch or set state"
+                        )
+                    if acc is not None:
+                        with self._stage("finalize"):
+                            keep(self._dense_to_partial(acc, key_specs, specs, lay))
+                        acc = None
+                    local_mode = True
+                    logger.info("group space %d > %d: block-local two-phase mode", new_groups,
+                                DENSE_G_MAX)
+                    keep(self._local_block(prog, enc, block, route, key_specs, specs, layout, lay,
+                                           bounds_ms))
+                    continue
                 current = tuple((ks.origin_rel or 0, ks.capacity) for ks in key_specs)
                 dcurrent = tuple(dk.capacity for dk in dkeys)
                 if acc is None or tuple(layouts) != current or dcaps != dcurrent:
-                    # new capacity epoch: fold the old accumulators into the
-                    # host aggregator under the old layout, then resize
+                    # new capacity epoch: the old accumulators leave under the
+                    # old layout (sketch and set state through the host
+                    # aggregator, the rest as a partial table), then resize
                     if acc is not None:
-                        flush()
+                        if lay.distinct_idx or lay.pct_idx:
+                            flush()
+                        else:
+                            with self._stage("finalize"):
+                                keep(self._dense_to_partial(acc, key_specs, specs, lay))
                     for ks, (o, c) in zip(key_specs, layouts):
                         ks.capacity = c
                         ks.origin_rel = o if ks.kind == "timebin" else None
@@ -1404,10 +1481,28 @@ class GpuQueryExecutor(QueryExecutor):
                 t = self._bounds_filter(self._materialize(table))
                 agg.update(t, self._where_mask(t))
 
+        if partials or (local_mode and (acc is not None or agg.groups)):
+            # two-phase finalize: the dense epoch, the block partials and the
+            # host-fallback groups merge through ONE pyarrow group_by
+            with self._stage("finalize"):
+                if acc is not None:
+                    keep(self._dense_to_partial(acc, key_specs, specs, lay))
+                keep(self._agg_groups_to_partial(agg, specs, len(key_specs)))
+            with self._stage("merge"):
+                interim = PT.merge_partials(partials, specs, len(key_specs))
+            with self._stage("finalize"):
+                return self.finalize_from_interim(interim, rewritten)
         with self._stage("finalize"):
             if acc is not None and not agg.groups and not lay.distinct_idx:
                 # the run stayed on the device and holds no value sets:
                 # vectorized dense finalize, no per-group Python
+                topk = self._device_topk_plan(rewritten) if sel.group_by and not lay.pct_idx else None
+                if topk is not None and acc_groups >= self.TOPK_MIN_GROUPS and topk[2] < acc_groups:
+                    # ORDER BY <aggregate> LIMIT k: K8 picks the k groups on
+                    # the card, and only their columns come back
+                    arr, ids = self._run_topk_program(acc, *topk, lay, specs)
+                    interim = self._dense_interim(arr, key_specs, specs, lay, group_ids=ids)
+                    return self.finalize_from_interim(interim, rewritten)
                 pcts = [(si, self._read_hist(h, acc_groups)) for si, h in zip(lay.pct_idx, pacc)]
                 interim = self._dense_interim(self._readback(acc), key_specs, specs, lay, pcts)
                 if interim.num_rows or sel.group_by:
@@ -1453,37 +1548,45 @@ class GpuQueryExecutor(QueryExecutor):
         remaps: list[np.ndarray],
         layout: PlanLayout,
         bounds_ms: tuple[int | None, int | None],
+        local: "LocalKeys | None" = None,
     ) -> None:
         """The rest of a block's K3 program after its WHERE: the time
         bounds and the padding mask ANDed into the verdict, one key
         instruction per GROUP BY key (mixed radix by capacity) and the
-        operand rows of `layout`."""
-        time_args = self._time_args(enc, key_specs, bounds_ms)
-        bi = 2 * sum(1 for ks in key_specs if ks.kind == "timebin")
+        operand rows of `layout`. With `local`, the keys are the block's
+        own: its codes (KEY_CODE) and bins from its first one, or the pair
+        codes `__pairkey` of pair mode."""
         ts = enc.columns.get(DEFAULT_TIMESTAMP_KEY)
         if ts is not None and any(b is not None for b in bounds_ms):
             if ts.kind != "time":
                 raise UnsupportedOnDevice(f"time bounds over a {ts.kind}-encoded timestamp")
             for b, op in zip(bounds_ms, (">=", "<")):
                 if b is not None:
-                    prog.cmp_i32(_slot(prog, ts), op, time_args[bi])
+                    # clamped like a predicate literal
+                    rel = max(-(2**31) + 2, min(2**31 - 2, b - enc.time_origin_ms))
+                    prog.cmp_i32(_slot(prog, ts), op, rel)
                     prog.and_()
-                    bi += 1
         if "__rowmask" in block:
             prog.is_null(prog.slot(None, "__rowmask"), negated=True)
             prog.and_()
-        stride = 1
-        ri = ti = 0
-        for ks in key_specs:
-            slot = _slot(prog, enc.columns[ks.column])
-            if ks.kind == "dict":
-                prog.key_dict(slot, remaps[ri], ks.capacity, stride)
-                ri += 1
-            else:
-                shift, k_off = time_args[ti], time_args[ti + 1]
-                prog.key_time(slot, shift, ks.bin_ms, k_off, ks.capacity, stride)
-                ti += 2
-            stride *= ks.capacity
+        if local is not None and local.pairs is not None:
+            prog.key_code(prog.slot("__pairkey", None), local.num_groups, 1)
+        else:
+            stride = 1
+            ri = 0
+            for i, ks in enumerate(key_specs):
+                slot = _slot(prog, enc.columns[ks.column])
+                cap = ks.capacity if local is None else local.caps[i]
+                if ks.kind == "timebin":
+                    origin = int(ks.origin_rel or 0) if local is None else local.origins[i]
+                    shift, k_off = self._bin_args(enc, ks.bin_ms, origin)
+                    prog.key_time(slot, shift, ks.bin_ms, k_off, cap, stride)
+                elif local is None:
+                    prog.key_dict(slot, remaps[ri], cap, stride)
+                    ri += 1
+                else:
+                    prog.key_code(slot, cap, stride)
+                stride *= cap
         _emit_operands(prog, layout, enc)
 
     def _fold_one(
@@ -1542,6 +1645,289 @@ class GpuQueryExecutor(QueryExecutor):
         for j, h in enumerate(pacc):
             stats_cuda.pct_histogram(h, frows[o.n_a + o.n_min + j], ids, brows[o.n_min + j])
 
+    # ------------------------------------------ high cardinality (block-local)
+
+    def _local_block(
+        self,
+        prog: Program,
+        enc: EncodedBatch,
+        block: dict,
+        route: str,
+        key_specs: list[KeySpec],
+        specs: list[AggSpec],
+        layout: PlanLayout,
+        lay: AccLayout,
+        bounds_ms: tuple[int | None, int | None],
+    ) -> pa.Table | None:
+        """Two-phase step (JAX `_local_block` :2264): fold one block on its
+        OWN codes (no global remap) into a fresh block-local accumulator,
+        read it back once and return its nonzero groups as a partial table.
+        `prog` holds the block's lowered WHERE. Key capacities are the
+        block's: pow2 of its dictionary (null slot included) and of its
+        time-bin span from its first bin. Where their product passes
+        LOCAL_G_MAX, the block's actual key combinations compact with one
+        np.unique into pair codes (pair mode), which ride the aux copy."""
+        caps: list[int] = []
+        origins: list[int] = []
+        keyinfo: list[tuple] = []
+        for ks in key_specs:
+            col = enc.columns.get(ks.column)
+            if col is None:
+                raise UnsupportedOnDevice(f"group key column {ks.column} missing")
+            if ks.kind == "dict":
+                if col.kind != "dict":
+                    raise UnsupportedOnDevice(f"group key {ks.column} not dict-encoded")
+                cap = _pow2(max(2, len(col.dictionary)))
+                caps.append(cap)
+                origins.append(0)
+                keyinfo.append(("dict", list(col.dictionary), cap))
+            else:
+                if col.vmin is None or col.vmax is None:
+                    raise UnsupportedOnDevice("time-bin key over an all-null column")
+                lo_bin = (enc.time_origin_ms + col.vmin) // ks.bin_ms
+                hi_bin = (enc.time_origin_ms + col.vmax) // ks.bin_ms
+                cap = _pow2(max(2, int(hi_bin - lo_bin + 1)))
+                if cap > LOCAL_G_MAX:
+                    raise UnsupportedOnDevice("time-bin span exceeds the device group budget")
+                caps.append(cap)
+                origins.append(int(lo_bin))
+                keyinfo.append(("timebin", int(lo_bin), ks.bin_ms, cap))
+        num_groups = max(math.prod(caps), 1)
+        aux: dict[str, np.ndarray] = {}
+        pairs = None
+        if num_groups > LOCAL_G_MAX:
+            # the cap product passes the budget, but a block's key
+            # combinations cannot outnumber its rows
+            with self._stage("pairs"):
+                comp = None
+                for ks, cap, origin in zip(key_specs, caps, origins):
+                    vals = self._host_codes(enc, block, ks.column).astype(np.int64)
+                    if ks.kind == "dict":
+                        codes = np.minimum(vals, cap - 1)
+                    else:
+                        codes = np.clip((vals + enc.time_origin_ms) // ks.bin_ms - origin, 0, cap - 1)
+                    comp = codes if comp is None else comp * cap + codes
+                pairs, inv = np.unique(comp, return_inverse=True)
+                num_groups = _pow2(max(2, len(pairs)))
+                if num_groups > LOCAL_G_MAX:
+                    raise UnsupportedOnDevice("distinct key combinations exceed the device group budget")
+                aux["__pairkey"] = inv.reshape(-1).astype(np.int32)
+        local = LocalKeys(tuple(caps), tuple(origins), num_groups, pairs)
+        with self._stage("encode"):
+            self._finish_program(prog, enc, block, key_specs, [], layout, bounds_ms, local=local)
+        aux["__prog"] = prog.pack()
+        with self._stage("transfer"):
+            dev = self._attach(block, aux)
+        self._count(route, 1)
+        self._count("device_local", 1)
+        with self._stage("fold"):
+            acc = self._local_fold(enc.block_rows, dev, prog, layout, num_groups)
+        with self._stage("local"):
+            return self._partial_from_arrays(self._readback(acc), lay, keyinfo, specs, pairs)
+
+    def _local_fold(
+        self, rows: int, dev: dict, prog: Program, layout: PlanLayout, num_groups: int
+    ) -> torch.Tensor:
+        """One block into a FRESH accumulator [AccLayout rows, num_groups]
+        (JAX `_get_local_program.fold` :2473): mask and ids (K3a, KEY_CODE
+        keys), operand rows (K3b), then A, K7 about the block's own means
+        (no Chan merge: each block's M2 is its own partial) and B. Local
+        mode holds no percentile or distinct state."""
+        words = dev["__prog"]
+        slots = [(dev[v] if v else None, dev[m] if m else None) for v, m in prog.slots]
+        mask, ids = F.mask_ids(words, slots, rows)
+        frows, brows = F.stack_operands(words, slots, mask, prog.n_frows, prog.n_brows)
+        o = OperandRows.of(layout)
+        adds = groupby_cuda.additive_groupby(ids, frows[: o.n_a], num_groups)
+        parts = [adds]  # count | per-agg counts | sums
+        if o.n_sq:
+            b_n, b_s = adds[1 + o.n_sum : 1 + o.n_sumk], adds[1 + o.n_all + o.n_sum :]
+            parts.append(stats_cuda.centered_m2(
+                ids, frows[1 + o.n_all + o.n_sum : o.n_a], brows[o.n_b : o.n_b + o.n_sq], mask,
+                b_s / b_n.clamp_min(1.0),
+            ))
+        if o.n_b:
+            parts.extend(groupby_cuda.minmax_groupby(
+                ids, frows[o.n_a : o.n_a + o.n_b], brows[: o.n_b], mask, num_groups, o.n_mink
+            ))
+        return torch.cat(parts) if len(parts) > 1 else adds
+
+    def _host_codes(self, enc: EncodedBatch, block: dict, column: str) -> np.ndarray:
+        """A column's encoded codes on the host: the encode-time array where
+        it still exists, else a readback (hot-set entries strip the host
+        copies)."""
+        col = enc.columns.get(column)
+        if col is None:
+            raise UnsupportedOnDevice(f"group key column {column} missing")
+        if len(col.values):
+            return col.values
+        return self._readback(block[column], np.int64)
+
+    @staticmethod
+    def _decode_key_col(info: tuple, code: np.ndarray) -> pa.Array:
+        """One key's codes -> arrow values: dictionary-typed for a dict key
+        (partials carry codes; values decode only where final rows do), time
+        bins arithmetically."""
+        if info[0] == "dict":
+            values = info[1]  # the last entry is the null slot (None)
+            if not values:
+                return pa.nulls(len(code))
+            take = np.minimum(code, len(values) - 1).astype(np.int32)
+            return pa.DictionaryArray.from_arrays(pa.array(take), pa.array(values))
+        origin_bin, bin_ms = info[1], info[2]
+        abs_ms = (origin_bin + code) * bin_ms
+        return pa.array(abs_ms.astype("datetime64[ms]"), pa.timestamp("ms"))
+
+    @classmethod
+    def _decode_keys(
+        cls, idxs: np.ndarray, keyinfo: list[tuple], composite_vals: np.ndarray | None = None
+    ) -> dict[str, pa.Array]:
+        """Group ids -> the `__g{i}` key columns. Group id = sum(code_i *
+        stride_i), first key minor; with `composite_vals` (pair mode) group
+        g decodes from composite_vals[g], first key major (np.unique's
+        order)."""
+        if composite_vals is None:
+            codes, rem = [], idxs.copy()
+            for info in keyinfo:
+                codes.append(rem % info[-1])
+                rem = rem // info[-1]
+        else:
+            codes, rem = [], composite_vals[idxs].copy()
+            for info in reversed(keyinfo[1:]):
+                codes.append(rem % info[-1])
+                rem = rem // info[-1]
+            codes.append(rem)
+            codes.reverse()
+        return {f"__g{i}": cls._decode_key_col(info, code)
+                for i, (info, code) in enumerate(zip(keyinfo, codes))}
+
+    @staticmethod
+    def _dense_keyinfo(key_specs: list[KeySpec]) -> list[tuple]:
+        """A dense epoch's keys as `_decode_key_col` reads them. A dictionary
+        code at capacity - 1 or above is the epoch's null slot: the global
+        dictionary may have grown past it."""
+        keyinfo: list[tuple] = []
+        for ks in key_specs:
+            if ks.kind == "dict":
+                keyinfo.append(("dict", ks.gdict.values[: ks.capacity - 1] + [None], ks.capacity))
+            else:
+                keyinfo.append(("timebin", int(ks.origin_rel or 0), ks.bin_ms, ks.capacity))
+        return keyinfo
+
+    def _partial_from_arrays(
+        self,
+        arr: np.ndarray,
+        lay: AccLayout,
+        keyinfo: list[tuple],
+        specs: list[AggSpec],
+        composite_vals: np.ndarray | None = None,
+    ) -> pa.Table | None:
+        """The nonzero groups of one dense partial -> a partial-format table
+        (`query/partials.py`), vectorized: `_decode_keys`, then one column
+        per `partials.partial_fields` entry. stddev/var rebuild the raw sum
+        of squares M2 + s^2 / n in f64, so that device and host partials
+        merge; the s^2 / n terms cancel at finalize."""
+        count = arr[0]
+        idxs = np.nonzero(count > 0)[0]
+        if len(idxs) == 0:
+            return None
+        cols: dict[str, pa.Array] = self._decode_keys(idxs, keyinfo, composite_vals)
+        cols["__cnt"] = pa.array(count[idxs])
+        for name, si, field in PT.partial_fields(specs):
+            pacv = arr[lay.pac_row(si)][idxs]
+            if field == "pac":
+                cols[name] = pa.array(pacv)
+                continue
+            if field == "sumsq":
+                sx = arr[lay.sqx_row(si)][idxs]
+                v = arr[lay.sqm2_row(si)][idxs] + sx * sx / np.maximum(pacv, 1.0)
+            elif field == "sum":
+                func = specs[si].func
+                v = arr[(lay.sqx_row if func in ("stddev", "var") else lay.sum_row)(si)][idxs]
+            else:
+                v = arr[(lay.min_row if field == "min" else lay.max_row)(si)][idxs]
+            cols[name] = pa.array(v, mask=~(pacv > 0))
+        return pa.table(cols)
+
+    def _dense_to_partial(
+        self, acc: torch.Tensor, key_specs: list[KeySpec], specs: list[AggSpec], lay: AccLayout
+    ) -> pa.Table | None:
+        """A dense epoch's accumulator -> partial table (at a capacity epoch,
+        the switch to local mode, or the end of a two-phase run), under the
+        epoch's layout."""
+        keyinfo = self._dense_keyinfo(key_specs)
+        return self._partial_from_arrays(self._readback(acc), lay, keyinfo, specs)
+
+    @staticmethod
+    def _agg_groups_to_partial(
+        agg: HashAggregator, specs: list[AggSpec], nkeys: int
+    ) -> pa.Table | None:
+        """Host-fallback groups (HashAggregator) -> a partial table, so that
+        mixed device and host runs merge exactly. Sized by the fallback
+        blocks' groups only."""
+        if not agg.groups:
+            return None
+        cs_idx = next((i for i, s in enumerate(specs) if s.func == "count_star"), None)
+        fields = PT.partial_fields(specs)
+        cols: dict[str, list] = {f"__g{i}": [] for i in range(nkeys)}
+        cols["__cnt"] = []
+        cols.update((name, []) for name, _, _ in fields)
+        for key, st in agg.groups.items():
+            for i in range(nkeys):
+                cols[f"__g{i}"].append(key[i])
+            cols["__cnt"].append(float(st.count[cs_idx]) if cs_idx is not None else 1.0)
+            for name, si, field in fields:
+                if field == "pac":
+                    v = float(st.count[si])
+                elif field in ("sum", "sumsq"):
+                    v = (st.sums if field == "sum" else st.sumsqs)[si] if st.count[si] else None
+                else:
+                    v = (st.mins if field == "min" else st.maxs)[si]
+                cols[name].append(v)
+        return pa.table(cols)
+
+    # -------------------------------------------- ORDER BY <agg> LIMIT k (K8)
+
+    TOPK_MIN_GROUPS = 1 << 13  # below this the full readback is cheap
+    TOPK_MAX_K = topk_cuda.TOPK_MAX_K
+
+    def _device_topk_plan(self, rewritten: list[S.SelectItem]) -> tuple | None:
+        """(spec index, desc, k) when ORDER BY/LIMIT can run as a device
+        top-k over the dense accumulator (JAX :2130): one ORDER BY key that
+        resolves to one of the aggregates, LIMIT (+ OFFSET) up to
+        TOPK_MAX_K, no HAVING, no window over the aggregates."""
+        sel = self.plan.select
+        if len(sel.order_by) != 1 or sel.limit is None or getattr(self, "_having", None) is not None:
+            return None
+        if any(S.contains_window(i.expr) for i in sel.items):
+            # a window over the aggregate output must see ALL groups
+            return None
+        k = (sel.offset or 0) + sel.limit
+        if k <= 0 or k > self.TOPK_MAX_K:
+            return None
+        o = sel.order_by[0]
+        for item, ritem in zip(sel.items, rewritten):
+            if not (isinstance(ritem.expr, S.Column) and ritem.expr.name.startswith("__agg")):
+                continue
+            alias_match = (
+                isinstance(o.expr, S.Column) and o.expr.table is None and ritem.alias == o.expr.name
+            )
+            if alias_match or repr(item.expr) == repr(o.expr):
+                return int(ritem.expr.name[5:]), o.desc, k
+        return None
+
+    def _run_topk_program(
+        self, acc: torch.Tensor, si: int, desc: bool, k: int, lay: AccLayout, specs: list[AggSpec]
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """The top k groups by aggregate `si`, picked on the device (K8,
+        `ops/topk_cuda.py`); reads back only the (R, k) gather and the k
+        group ids. A kernel that fails raises: there is no fallback to the
+        full readback."""
+        kind = specs[si].func
+        val_row, pac_row, sq_row = topk_cuda.rows_for(lay, kind, si)
+        gathered, idx = topk_cuda.topk_groups(acc, kind, val_row, pac_row, sq_row, desc, k)
+        return self._readback(gathered), self._readback(idx, np.int64)
+
     # ------------------------------------------------------------- internals
 
     def _bounds_ms(self) -> tuple[int | None, int | None]:
@@ -1552,32 +1938,16 @@ class GpuQueryExecutor(QueryExecutor):
         return tuple(None if b is None else time_ticks(b, "ms", ">=") for b in (tb.low, tb.high))
 
     @staticmethod
-    def _time_args(
-        enc: EncodedBatch,
-        key_specs: list[KeySpec],
-        bounds_ms: tuple[int | None, int | None],
-    ) -> list[int]:
-        """Per-block time scalars: [per-timebin-key (shift, K)..., bounds
-        lo?, bounds hi?].
-
-        shift = origin % bin (so (rel + shift) // bin is the global bin
-        index minus origin//bin) and K = origin//bin - scan_lo_bin (the
-        block's bin offset inside the scan's group window). Bounds clamp
-        like predicate literals."""
-        out: list[int] = []
-        for ks in key_specs:
-            if ks.kind != "timebin":
-                continue
-            shift = enc.time_origin_ms % ks.bin_ms
-            k_off = enc.time_origin_ms // ks.bin_ms - int(ks.origin_rel or 0)
-            if not (-(2**31) < k_off < 2**31):
-                raise UnsupportedOnDevice("block outside the scan's bin window")
-            out.extend((shift, k_off))
-        for b in bounds_ms:
-            if b is not None:
-                rel = b - enc.time_origin_ms
-                out.append(max(-(2**31) + 2, min(2**31 - 2, rel)))
-        return out
+    def _bin_args(enc: EncodedBatch, bin_ms: int, origin_bin: int) -> tuple[int, int]:
+        """A time-bin key's per-block scalars (shift, K): shift = origin %
+        bin, so that (rel + shift) // bin is the global bin index minus
+        origin // bin, and K = origin // bin - origin_bin, the block's bin
+        offset inside the key's group window."""
+        shift = enc.time_origin_ms % bin_ms
+        k_off = enc.time_origin_ms // bin_ms - origin_bin
+        if not (-(2**31) < k_off < 2**31):
+            raise UnsupportedOnDevice("block outside the scan's bin window")
+        return shift, k_off
 
     def _required_layout(self, ks: KeySpec, enc: EncodedBatch) -> tuple[int, int]:
         """(origin, capacity) this key needs for the incoming batch. A change
@@ -1643,58 +2013,51 @@ class GpuQueryExecutor(QueryExecutor):
         specs: list[AggSpec],
         lay: AccLayout,
         pcts: list[tuple[int, np.ndarray]] | None = None,
+        group_ids: np.ndarray | None = None,
     ) -> pa.Table:
         """Dense accumulator readback -> interim table (__g/__agg columns),
         vectorized: key decode by divmod over capacities, aggregate finalize
         by numpy masking (stddev/var from the M2 rows, percentiles by the
-        vectorized histogram walk)."""
+        vectorized histogram walk). With `group_ids`, `arr` is the device
+        top-k's (R, k) gather and group_ids[j] column j's group."""
         count = arr[0]
-        idxs = np.nonzero(count > 0)[0]
-        cols: dict[str, pa.Array] = {}
-        rem = idxs.copy()
-        for i, ks in enumerate(key_specs):
-            codes = rem % ks.capacity
-            rem = rem // ks.capacity
-            if ks.kind == "dict":
-                gd = ks.gdict
-                values = np.empty(len(gd) + 1, dtype=object)
-                values[:-1] = gd.values
-                values[-1] = None  # null / overflow slot
-                cols[f"__g{i}"] = pa.array(values[np.minimum(codes, len(gd))].tolist())
-            else:
-                abs_ms = ((ks.origin_rel or 0) + codes) * ks.bin_ms
-                cols[f"__g{i}"] = pa.array(abs_ms.astype("datetime64[ms]"), pa.timestamp("ms"))
+        sel_pos = np.nonzero(count > 0)[0]  # columns of `arr`
+        idxs = sel_pos if group_ids is None else group_ids[sel_pos]  # their groups
+        cols = {
+            name: col.dictionary_decode() if isinstance(col, pa.DictionaryArray) else col
+            for name, col in self._decode_keys(idxs, self._dense_keyinfo(key_specs)).items()
+        }
         pct_hists = dict(pcts or [])
         for si, spec in enumerate(specs):
             if spec.func == "count_star":
-                cols[f"__agg{si}"] = pa.array(count[idxs].astype(np.int64))
+                cols[f"__agg{si}"] = pa.array(count[sel_pos].astype(np.int64))
                 continue
-            pac = arr[lay.pac_row(si)][idxs]
+            pac = arr[lay.pac_row(si)][sel_pos]
             seen = pac > 0
             if spec.func == "count":
                 cols[f"__agg{si}"] = pa.array(pac.astype(np.int64))
             elif spec.func in ("sum", "avg"):
-                v = arr[lay.sum_row(si)][idxs]
+                v = arr[lay.sum_row(si)][sel_pos]
                 if spec.func == "avg":
                     v = np.divide(v, pac, out=np.zeros_like(v), where=seen)
                 cols[f"__agg{si}"] = pa.array(v, mask=~seen)
             elif spec.func in ("stddev", "var"):
-                m2 = arr[lay.sqm2_row(si)][idxs]
+                m2 = arr[lay.sqm2_row(si)][sel_pos]
                 ok = pac >= 2
                 var = np.maximum(np.divide(m2, pac - 1, out=np.zeros_like(m2), where=ok), 0.0)
                 cols[f"__agg{si}"] = pa.array(np.sqrt(var) if spec.func == "stddev" else var, mask=~ok)
             elif spec.func == "percentile":
                 v, ok = hist_quantile(
                     pct_hists[si][idxs],
-                    arr[lay.pct_min_row(si)][idxs],
-                    arr[lay.pct_max_row(si)][idxs],
+                    arr[lay.pct_min_row(si)][sel_pos],
+                    arr[lay.pct_max_row(si)][sel_pos],
                     spec.param if spec.param is not None else 0.5,
                 )
                 cols[f"__agg{si}"] = pa.array(v, mask=~ok)
             elif spec.func == "min":
-                cols[f"__agg{si}"] = pa.array(arr[lay.min_row(si)][idxs], mask=~seen)
+                cols[f"__agg{si}"] = pa.array(arr[lay.min_row(si)][sel_pos], mask=~seen)
             elif spec.func == "max":
-                cols[f"__agg{si}"] = pa.array(arr[lay.max_row(si)][idxs], mask=~seen)
+                cols[f"__agg{si}"] = pa.array(arr[lay.max_row(si)][sel_pos], mask=~seen)
         if not cols:
             return pa.table({"__dummy": pa.array([None] * len(idxs))})
         return pa.table(cols)

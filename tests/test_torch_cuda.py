@@ -7,7 +7,8 @@ are installed. Tolerances: counts exact (f32 adds of 0/1 below 2^24),
 sums rel 2e-4 (atomics add in a varying order), min/max exact; of the
 statistics kernels, K5 (distinct presence, HLL registers) and K6
 (percentile histograms) bit for bit, K7 (centred second moments) rel 2e-4
-of its f64 plain version.
+of its f64 plain version; K8 (the device top-k) bit for bit in its ids and
+its gather.
 """
 
 import numpy as np
@@ -809,3 +810,110 @@ def test_cuda_select_matches_plain_path(cuda, sql, monkeypatch):
     if "ORDER BY" not in sql:
         got, ref = (sorted(x, key=lambda r: tuple(map(repr, r.values()))) for x in (got, ref))
     assert len(got) > 0 and got == ref
+
+
+# ------------------------------------------------- K8 (topk.cu), high cardinality
+
+
+@pytest.mark.parametrize("g", [8192, 1 << 17, 1 << 19])
+def test_cuda_topk_groups_exact_on_the_hazard_set(cuda, g):
+    """K8 against its plain version, bit for bit in the ids and the gather:
+    ties at the cut, NaN, +-inf, +-3.4e38, +-0.0 and subnormal keys, NULL
+    aggregates and empty slots, every kind, both orders, k from 1 to 4,096."""
+    import chip_smoke
+    from parseable_tpu_torch.ops import topk_cuda as K
+
+    acc = torch.from_numpy(chip_smoke.topk_hazard_acc(np, np.random.default_rng(g), 12, g, 5))
+    acc = acc.to(cuda)
+    for kind in K.KINDS:
+        for desc in (True, False):
+            for k in (1, 10, K.TOPK_MAX_K):
+                args = (acc, kind, 6, 3, 9, desc, k)
+                before = K.LAUNCHES["topk_groups"]
+                out, idx = K.topk_groups(*args)
+                assert K.LAUNCHES["topk_groups"] == before + 1
+                pout, pidx = K.topk_groups_plain(*args)
+                assert torch.equal(idx, pidx), (kind, desc, k)
+                assert torch.equal(out.view(torch.int32), pout.view(torch.int32)), (kind, desc, k)
+
+
+@pytest.mark.parametrize("g", [1 << 17, 1 << 20, 1 << 22])
+def test_cuda_local_fold_regimes_at_large_g(cuda, g):
+    """The local fold's kernels at its group counts: A in its "global"
+    regime, B with its decode launch, K7 in its "global" regime, against
+    their plain versions (counts and min/max exact, sums and M2 rel 2e-4)."""
+    from parseable_tpu_torch.ops import stats_cuda as SC
+
+    assert G.additive_regime(3, g) == "global" and G.minmax_decode(2, g) == "launch"
+    assert SC.m2_regime(1, g) == "global"
+    rng = np.random.default_rng(g)
+    n = 1 << 20
+    ids_np = rng.integers(0, g, n).astype(np.int32)
+    ids = torch.from_numpy(ids_np).to(cuda)
+    rows = torch.from_numpy(_rows(rng, ids_np, 3)).to(cuda)
+    _assert_additive(G.additive_groupby(ids, rows, g), G.additive_groupby_plain(ids, rows, g), rows)
+    vals = torch.from_numpy((rng.standard_normal((2, n)) * 100).astype(np.float32)).to(cuda)
+    valid = torch.from_numpy(rng.random((2, n)) < 0.9).to(cuda)
+    mask = torch.from_numpy(rng.random(n) < 0.8).to(cuda)
+    got = G.minmax_groupby(ids, vals, valid, mask, g, 1)
+    want = G.minmax_groupby_plain(ids, vals, valid, mask, g, 1)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    mean = torch.from_numpy((rng.standard_normal((1, g)) * 10).astype(np.float32)).to(cuda)
+    got = SC.centered_m2(ids, vals[:1].contiguous(), valid[:1].contiguous(), mask, mean)
+    want = SC.centered_m2_plain(ids, vals[:1].contiguous(), valid[:1].contiguous(), mask, mean)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize(
+    "sql,pairs",
+    [
+        ("SELECT a, count(*) AS c, sum(v) AS s, max(v) AS mx, stddev(v) AS sd FROM t GROUP BY a",
+         False),
+        ("SELECT a, b, count(*) AS c, sum(v) AS s, min(v) AS mn FROM t GROUP BY a, b", True),
+    ],
+    ids=["local", "pairs"],
+)
+def test_cuda_local_mode_matches_plain_path(cuda, sql, pairs, monkeypatch):
+    """Local mode on the card (K3a KEY_CODE ids, K3b, A, B, K7 into a fresh
+    block accumulator, one readback a block) against the same executor on
+    the CPU: counts and min/max exact, sums and stddev rel 2e-4 (f32
+    atomics in another order; the values are positive, so that no sum
+    cancels to near zero, where a relative bound does not hold)."""
+    import pyarrow as pa
+
+    from parseable_tpu_torch.ops import fold_cuda as F
+    from parseable_tpu_torch.ops.hotset import get_hotset
+    from parseable_tpu_torch.query import executor_cuda as X
+    from parseable_tpu_torch.query.planner import plan
+    from parseable_tpu_torch.query.sql import parse_sql
+
+    rng = np.random.default_rng(3)
+    tables = [
+        pa.table({"a": pa.array([f"a{int(x)}" for x in rng.integers(0, 3000, 1 << 16)]),
+                  "b": pa.array([f"b{int(x)}" for x in rng.integers(0, 3000, 1 << 16)]),
+                  "v": pa.array(rng.random(1 << 16) * 100)})
+        .replace_schema_metadata({X.SOURCE_ID_META: f"local{i}".encode()})
+        for i in range(2)
+    ]
+    get_hotset().clear()
+    monkeypatch.setenv("P_TPU_ENC_CACHE", "0")
+    monkeypatch.setattr(X, "DENSE_G_MAX", 1 << 10)
+    monkeypatch.setattr(X, "LOCAL_G_MAX", 1 << 20)
+    before = F.LAUNCHES["mask_ids"]
+    on_card = X.GpuQueryExecutor(plan(parse_sql(sql)), device=cuda)
+    got = on_card.execute(iter(tables)).to_pylist()
+    r = on_card.route_stats
+    assert (r["device_local"], r["cpu_fallback"]) == (2, 0), r
+    assert F.LAUNCHES["mask_ids"] == before + 2
+    get_hotset().clear()
+    ref = X.GpuQueryExecutor(plan(parse_sql(sql)), device="cpu").execute(iter(tables)).to_pylist()
+    key = lambda row: (row["a"], row.get("b"))  # noqa: E731
+    got, ref = sorted(got, key=key), sorted(ref, key=key)
+    assert len(got) == len(ref) > 0
+    for x, y in zip(got, ref):
+        for k in x:
+            if k in ("s", "sd"):
+                assert x[k] == pytest.approx(y[k], rel=2e-4, abs=1e-6)
+            else:
+                assert x[k] == y[k], (k, x[k], y[k])

@@ -221,11 +221,13 @@ def test_outside_the_slice_takes_the_cpu_engine(sql, tables):
 
 def test_group_space_beyond_the_dense_budget(monkeypatch, tables):
     """Once the group space outgrows DENSE_G_MAX the rest of the scan folds
-    on the host; device partials and host partials merge exactly."""
+    block-local on the device, as in the JAX package: the first block's
+    dense epoch (4 x 16 groups) and the local blocks' partials merge
+    exactly, and no block folds on the host."""
     monkeypatch.setattr(X, "DENSE_G_MAX", 64)
     sql = "SELECT host AS g0, path AS g1, count(*) AS c0, max(lat) AS m0 FROM t GROUP BY g0, g1"
     got, routes = port_gpu(sql, tables)
-    assert routes["device_cold"] >= 1 and routes["cpu_fallback"] >= 1, routes
+    assert (routes["device_cold"], routes["device_local"], routes["cpu_fallback"]) == (3, 2, 0), routes
     assert_rows(jax_cpu(sql, tables), got, sql, exact_minmax=False)
 
 
@@ -386,14 +388,15 @@ def test_negation_follows_three_valued_logic(name, engine, null_host_tables):
 
 @pytest.mark.parametrize("name", list(NEGATIONS))
 def test_negation_does_not_depend_on_the_route(monkeypatch, name, null_host_tables):
-    """A scan whose first block folds on the device and the rest on the host
-    (the group space outgrows DENSE_G_MAX) answers as an all-device scan."""
+    """A scan whose first block folds dense and the rest block-local (the
+    group space outgrows DENSE_G_MAX) answers as an all-dense scan, NULL
+    hosts included."""
     sql = negation_sql(name, "host")
     on_device, routes = port_gpu(sql, null_host_tables)
-    assert routes["cpu_fallback"] == 0, routes
+    assert routes["cpu_fallback"] == routes["device_local"] == 0, routes
     monkeypatch.setattr(X, "DENSE_G_MAX", 4)  # the first block's 2 hosts (+ null) fit
     mixed, routes = port_gpu(sql, null_host_tables)
-    assert routes["device_cold"] == 1 and routes["cpu_fallback"] == 2, routes
+    assert (routes["device_cold"], routes["device_local"], routes["cpu_fallback"]) == (3, 2, 0), routes
     want = kleene_counts(name, null_host_tables, "host")
     assert {r["g0"]: r["c0"] for r in mixed} == {r["g0"]: r["c0"] for r in on_device} == want
 

@@ -225,6 +225,49 @@ def test_time_bin_key_floors_and_wraps_as_jax(shift, bin_ms, k_off):
     np.testing.assert_array_equal(ids.numpy(), want)
 
 
+def jax_local_ids(keys: list[tuple[np.ndarray, int]]) -> np.ndarray:
+    """The JAX local fold's own-code ids (executor_tpu.py:2493-2500), in jnp:
+    sum of min(code, cap - 1) * stride, first key minor."""
+    ids, stride = None, 1
+    for codes, cap in keys:
+        part = jnp.minimum(jnp.asarray(codes), cap - 1) * jnp.int32(stride)
+        ids = part if ids is None else ids + part
+        stride *= cap
+    return np.asarray(ids.astype(jnp.int32))
+
+
+@pytest.mark.parametrize("dtype", [np.int8, np.int16, np.int32])
+def test_key_code_matches_the_jax_local_fold(dtype):
+    """KEY_CODE (the block-local fold's keys): a block's own codes of every
+    width, clamped from above at cap - 1 (codes past it, the null slot and
+    padding among them), in mixed radix with a time-bin key and a second
+    code key; and a pair key alone, as pair mode folds it."""
+    rng = np.random.default_rng(6)
+    n = 5000
+    top = np.iinfo(dtype).max
+    cap = min(128, top + 1)
+    codes = rng.integers(0, top + 1, n).astype(dtype)
+    other = rng.integers(0, 40, n).astype(np.int16)
+    ts = rng.integers(0, 600_000, n).astype(np.int32)
+    prog = F.Program()
+    prog.const(True)
+    prog.key_code(prog.slot("codes", None), cap, 1)
+    prog.key_time(prog.slot("ts", None), 0, 60_000, 0, 16, cap)
+    prog.key_code(prog.slot("other", None), 32, cap * 16)
+    dev = {"codes": torch.from_numpy(codes), "ts": torch.from_numpy(ts),
+           "other": torch.from_numpy(other)}
+    _, _, _, ids = run(prog, dev, n)
+    want = jax_local_ids([(codes, cap)]) + cap * jax_time_bins(ts, 0, 60_000, 0, 16) + \
+        cap * 16 * jax_local_ids([(other, 32)])
+    np.testing.assert_array_equal(ids.numpy(), want)
+    pairs = rng.integers(0, 1 << 16, n).astype(np.int32)
+    prog = F.Program()
+    prog.const(True)
+    prog.key_code(prog.slot("__pairkey", None), 1 << 15, 1)
+    _, _, _, ids = run(prog, {"__pairkey": torch.from_numpy(pairs)}, n)
+    np.testing.assert_array_equal(ids.numpy(), jax_local_ids([(pairs, 1 << 15)]))
+
+
 @pytest.mark.parametrize(
     "text",
     ["lower(host) = 'h0'", "bytes + 1 > 5", "lat IN ('x', 'y')", "p_timestamp IN ('a')", "1"],

@@ -731,19 +731,32 @@ def test_blocks_pass_a_stub_through_as_its_own_block():
 
 
 def test_a_stub_past_the_device_budget_folds_on_the_host(tmp_path, monkeypatch):
-    """Blocks past the group budget fold on the host; a resident one is read
-    from its source first (the CPU-fallback handler materializes it)."""
+    """Past the group budget a query with set state (count(distinct)) folds
+    the rest of its blocks on the host; a resident one is read from its
+    source first (the CPU-fallback handler materializes it). A query
+    without such state folds the same resident stubs block-local on the
+    device instead, reading no Parquet."""
     tables = [make_table(20 + i, 2000, card) for i, card in enumerate((2, 6, 30))]
     p = write_lake(tmp_path, tables)
     try:
-        sql = f"SELECT host AS g0, count(*) AS c0, avg(lat) AS a0 FROM {STREAM} GROUP BY g0"
+        sql = (f"SELECT host AS g0, count(*) AS c0, count(distinct path) AS c1 FROM {STREAM} "
+               f"GROUP BY g0")
+        local_sql = f"SELECT host AS g0, count(*) AS c0, avg(lat) AS a0 FROM {STREAM} GROUP BY g0"
         PH.get_hotset().clear()
-        QuerySession(p, engine="gpu", device="cpu").query(sql)  # all resident
+        for q in (sql, local_sql):
+            QuerySession(p, engine="gpu", device="cpu").query(q)  # all resident
         monkeypatch.setattr(X, "DENSE_G_MAX", 4)
         res = QuerySession(p, engine="gpu", device="cpu").query(sql)
         r = res.stats["device_routes"]
-        assert r["cpu_fallback"] >= 1 and r["device_warm"] >= 1, r
+        assert r["cpu_fallback"] >= 1 and r["device_warm"] >= 1 and r["device_local"] == 0, r
+        assert res.stats["bytes_scanned"] > 0  # the stubs' sources were read
         assert_rows(jax_cpu(sql.replace(STREAM, "t"), tables), res.table.to_pylist(), sql, False)
+        res = QuerySession(p, engine="gpu", device="cpu").query(local_sql)
+        r = res.stats["device_routes"]
+        assert (r["device_warm"], r["device_local"], r["cpu_fallback"]) == (3, 2, 0), r
+        assert res.stats["bytes_scanned"] == 0
+        want = jax_cpu(local_sql.replace(STREAM, "t"), tables)
+        assert_rows(want, res.table.to_pylist(), local_sql, False)
     finally:
         p.shutdown()
 
