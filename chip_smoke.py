@@ -319,6 +319,12 @@ def uniform_a(torch, r: int, n: int, g: int, gen):
     """Kernel A inputs with uniform ids, with rows as the main path builds
     them: row mask, 0/1 validity, masked sums."""
     ids = torch.randint(0, g, (n,), generator=gen, dtype=torch.int32)
+    return ids.cuda(), a_rows(torch, r, n, gen)
+
+
+def a_rows(torch, r: int, n: int, gen):
+    """Kernel A's value rows as the main path builds them: row mask, 0/1
+    validity, masked sums (on the card)."""
     mask = torch.rand(n, generator=gen) < 0.9
     n_valid = (r - 1) // 2
     rows = torch.cat(
@@ -328,7 +334,7 @@ def uniform_a(torch, r: int, n: int, g: int, gen):
             torch.rand(r - 1 - n_valid, n, generator=gen) * 50_000 * mask[None],
         ]
     )
-    return ids.cuda(), rows.cuda().contiguous()
+    return rows.cuda().contiguous()
 
 
 def uniform_b(torch, k: int, n: int, g: int, gen):
@@ -476,6 +482,76 @@ def edge_cases(torch, G, gen) -> None:
         pmn, pmx = G.minmax_groupby_plain(ids, vals, valid, mask, g, 1)
         check(torch.equal(mn, pmn) and torch.equal(mx, pmx), f"edge kernel B not exact at G={g}")
         log(f"phase 2 edge minmax_groupby K=2 G={g}: exact")
+
+
+# ids of the block-local fold's blocks (local_ids)
+LOCAL_IDS = ("uniform", "minute-band", "near-unique", "one-hot-group", "outside")
+
+
+def local_ids(torch, n: int, g: int, kind: str, gen):
+    """Ids as the block-local fold gives them (on the card): uniform;
+    hc_minute_path's one-minute band (one time bin of 8, first key minor,
+    over 102,400 path codes: every 8th group); pair mode's near-unique codes;
+    one hot group (9 rows in 10); two thirds outside [0, G)."""
+    if kind == "uniform":
+        ids = torch.randint(0, g, (n,), generator=gen)
+    elif kind == "minute-band":
+        ids = 3 + 8 * torch.randint(0, min(102_400, g // 8), (n,), generator=gen)
+    elif kind == "near-unique":
+        ids = torch.randperm(max(g, n), generator=gen)[:n] % g
+    elif kind == "one-hot-group":
+        ids = torch.where(torch.rand(n, generator=gen) < 0.9, g // 2,
+                          torch.randint(0, g, (n,), generator=gen))
+    else:
+        ids = torch.randint(-g, 2 * g, (n,), generator=gen)
+    return ids.to(torch.int32).cuda()
+
+
+def unaligned(torch, x):
+    """A contiguous copy of `x` whose data starts one element past a 16-byte
+    boundary (the kernels' scalar loads)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def local_fold_hazards(torch, G, SC, gen) -> None:
+    """Untimed: A and K7 in their "global" regime (the block-local fold's)
+    against their plain versions (A within rel 2e-4 of a f64 sum, counts
+    exact; K7 `m2_close`) at G = 2^17, 2^20 and 2^22, on every kind of ids
+    of LOCAL_IDS, R = 1, 3, 4, 5 and 8 value rows (K7 Q = 1 and 2), with a
+    NaN and +-inf in the last value row (each in its own group), and once
+    more a ragged block (N = 2^20 - 3) one element off 16-byte alignment."""
+    for g in (1 << 17, 1 << 20, 1 << 22):
+        worst, cases = 0.0, 0
+        for kind in (*LOCAL_IDS, "ragged, unaligned"):
+            ragged = kind.startswith("ragged")
+            n = N_BLOCK - 3 if ragged else N_BLOCK
+            ids = local_ids(torch, n, g, "uniform" if ragged else kind, gen)
+            for r in (1, 3, 4, 5, 8):
+                rows = a_rows(torch, r, n, gen)
+                if r >= 3:
+                    rows[-1, 5], rows[-1, 6], rows[-1, 7] = math.nan, math.inf, -math.inf
+                i, x = (unaligned(torch, ids), unaligned(torch, rows)) if ragged else (ids, rows)
+                check(G.additive_regime(r, g) == "global", f"kernel A at R={r} G={g}")
+                res = check_additive(torch, i, x, g, G.additive_groupby(i, x, g),
+                                     G.additive_groupby_plain(i, x, g), f"local R={r} G={g} {kind}")
+                worst, cases = max(worst, res["max_rel_err_f64"]), cases + 1
+            for q in (1, 2):
+                _, vals, valid, mask, mean = (t.cuda() for t in stats_inputs(
+                    torch, SC, "centered_m2", (q, n, g), gen))
+                data = [ids, m2_poisoned(torch, ids, vals, valid, mask, g), valid, mask]
+                if ragged:
+                    data = [unaligned(torch, d) for d in data]
+                check(SC.m2_regime(q, g) == "global", f"K7 at Q={q} G={g}")
+                got = SC.centered_m2(*data, mean)
+                check(m2_close(torch, got, SC.centered_m2_plain(*data, mean))
+                      and int((~torch.isfinite(got)).sum()) <= 2,
+                      f"K7 disagrees with its plain version: Q={q} G={g} {kind}")
+                cases += 1
+        log(f"phase 2 local fold hazards G={g}: {cases} cases of A and K7 agree with their plain "
+            f"versions (A's largest rel err against f64 {worst:.3g})")
 
 
 # kernel A's rule switches between the tensor and shared regimes around these
@@ -2626,9 +2702,11 @@ def main() -> int:
     # the block-local fold's group counts: A "global", B's decode launch, K7
     # "global", which the dense path never reaches past 65,536 groups
     for g in (1 << 17, 1 << 20, 1 << 22):
-        res = kernel_a_case(torch, G, timer, *uniform_a(torch, 3, N_BLOCK, g, gen), g, "uniform")
-        check(res["regime"] == "global", f"kernel A at G={g}: {res['regime']}")
-        log(f"phase 2 additive_groupby (local fold) {json.dumps(res)}")
+        for r in (3, 4):
+            res = kernel_a_case(torch, G, timer, *uniform_a(torch, r, N_BLOCK, g, gen), g,
+                                "uniform")
+            check(res["regime"] == "global", f"kernel A at G={g}: {res['regime']}")
+            log(f"phase 2 additive_groupby (local fold) {json.dumps(res)}")
         res = kernel_b_case(torch, G, timer, *uniform_b(torch, 2, N_BLOCK, g, gen), g, 1, "uniform")
         check(res["decode"] == "launch", f"kernel B at G={g}: decode {res['decode']}")
         log(f"phase 2 minmax_groupby (local fold) {json.dumps(res)}")
@@ -2637,6 +2715,7 @@ def main() -> int:
                          stats_inputs(torch, SC, "centered_m2", key, gen), "uniform")
         check(res["regime"] == "global", f"K7 at G={g}: {res['regime']}")
         log(f"phase 2 centered_m2 (local fold) {json.dumps(res)}")
+    local_fold_hazards(torch, G, SC, gen)
     edge_cases(torch, G, gen)
     rule_sweep(torch, G, timer, gen)
     k3_hazards(torch, F, timer, args.seed)

@@ -1,7 +1,8 @@
 // Host caches and warp helpers shared by the port's CUDA sources
 // (groupby.cu, stats.cu): device attributes and occupancy read once, grid
-// clamps, and the warp-adaptive aggregation of lanes that share a key. Every
-// name is in an anonymous namespace: each library has its own copy.
+// clamps, a vector reduction into global memory, and the warp-adaptive
+// aggregation of lanes that share a key. Every name is in an anonymous
+// namespace: each library has its own copy.
 
 #pragma once
 
@@ -129,6 +130,14 @@ __device__ __forceinline__ Peers fold_peers(int key, bool crowd) {
   solo.steps = 0;
   solo.leader = true;
   return solo;
+}
+
+// A vector reduction into global memory (sm_90): one L2 atomic operation
+// adds four consecutive f32 (16-byte aligned) and returns nothing.
+__device__ __forceinline__ void red_add4(float* p, float a, float b, float c, float d) {
+  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};" ::"l"(p), "f"(a), "f"(b),
+               "f"(c), "f"(d)
+               : "memory");
 }
 
 // `v` combined by `op` over the lanes that share this lane's key, by pointer

@@ -58,8 +58,24 @@
 //     as many CTAs as the card holds: timed over CTA counts at G = 8192,
 //     fewer CTAs, each flushing less, were slower; the flush is not what
 //     costs, the reads need every SM.
-//   global (anything larger): the same adaptive aggregation, atomics
-//     straight into the output.
+//   global (anything larger; the block-local fold's 2^17-2^22 groups): what
+//     bounds it is not its bytes but the L2's random operations. The card
+//     does about the same number of them a second whatever their width, 16
+//     bytes or 4 (PERF.md, scripts/torch_local_fold_variants.py), and in
+//     [R, G] a row's R values lie G*4 bytes apart, R operations a row. So
+//     the kernel folds into a group-major record [G, record_width(R)]
+//     (scratch, zeroed by a memset): after the loads and the adaptive
+//     aggregation of the shared regime (four rows a lane by vector loads,
+//     one crowding probe a step), a row's values go in by one 16-byte
+//     vector reduction (red.global.add.v4.f32) per four value rows, one
+//     operation a row for R <= 4, and a row whose values are all 0 (a
+//     masked-off row) is skipped. The loads are evict-first (read once), so
+//     that the record keeps its place in L2, and the kernel runs at 64
+//     registers, two CTAs of 512 an SM: at 32 it spilled and ran 1.3x
+//     slower. A second launch lays the record out as [R, G], a thread a
+//     group; it is bound by its bytes (a read of the record, a write of the
+//     output: 13 us of 39 at R = 4, G = 2^20). A NaN or +-inf value adds
+//     into its own group like any other.
 //
 // Kernel B, minmax_groupby: per-group min of the first n_min value rows and
 //   max of the rest, with the semantics of kernels.py:233-248 (segment_min /
@@ -102,6 +118,8 @@
 namespace {
 
 constexpr int kThreads = 512;       // atomic regimes and kernel B
+constexpr int kGlobalCtas = 2;      // global regime, R <= 4: CTAs an SM must hold at once
+constexpr bool kGlobalStream = true;  // global regime: evict-first loads of the rows
 constexpr int kHeldB = 4;           // kernel B: value rows held in registers
 constexpr int kTcThreads = 256;     // tensor regime: 8 warps
 constexpr int kTcChunk = 64;        // rows of one ring stage: four 16-row k-tiles
@@ -341,25 +359,34 @@ __global__ void __launch_bounds__(kTcThreads, MT <= 4 ? 2 : 1)
 
 // Four consecutive entries of one array from entry i: one vector load when
 // `whole` (aligned, all four inside), else one by one with `fill` past N.
+// CS: evict-first loads (ld.global.cs) for data read once, so that what the
+// kernel writes keeps its place in L2.
+template <bool CS, typename T>
+__device__ __forceinline__ T load1(const T* p) {
+  return CS ? __ldcs(p) : __ldg(p);
+}
+
+template <bool CS = false>
 __device__ __forceinline__ void load4(int (&d)[4], const int* __restrict__ p, long long i,
                                       long long N, bool whole, int fill) {
   if (whole) {
-    const int4 v = __ldg(reinterpret_cast<const int4*>(p + i));
+    const int4 v = load1<CS>(reinterpret_cast<const int4*>(p + i));
     d[0] = v.x, d[1] = v.y, d[2] = v.z, d[3] = v.w;
   } else {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) d[e] = i + e < N ? __ldg(p + i + e) : fill;
+    for (int e = 0; e < 4; ++e) d[e] = i + e < N ? load1<CS>(p + i + e) : fill;
   }
 }
 
+template <bool CS = false>
 __device__ __forceinline__ void load4(float (&d)[4], const float* __restrict__ p, long long i,
                                       long long N, bool whole, float fill) {
   if (whole) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(p + i));
+    const float4 v = load1<CS>(reinterpret_cast<const float4*>(p + i));
     d[0] = v.x, d[1] = v.y, d[2] = v.z, d[3] = v.w;
   } else {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) d[e] = i + e < N ? __ldg(p + i + e) : fill;
+    for (int e = 0; e < 4; ++e) d[e] = i + e < N ? load1<CS>(p + i + e) : fill;
   }
 }
 
@@ -379,16 +406,13 @@ __device__ __forceinline__ void load4(uint8_t (&d)[4], const uint8_t* __restrict
 // the first fold, so a step waits on memory once.
 // With 4 held rows the kernel fits in 32 registers, so that four CTAs share
 // an SM and one wave covers a main-path block of 2^20 rows.
-template <int MODE, int HELD>  // MODE kShared or kGlobal
+template <int HELD>
 __global__ void __launch_bounds__(kThreads, HELD <= 4 ? 4 : 2)
-    additive_atomic_kernel(const int* __restrict__ ids, const float* __restrict__ rows,
+    additive_shared_kernel(const int* __restrict__ ids, const float* __restrict__ rows,
                            float* __restrict__ out, int R, long long N, int G, int vec) {
-  extern __shared__ float acc[];  // kShared: [R, G]
-  if (MODE == kShared) {
-    for (int j = threadIdx.x; j < R * G; j += blockDim.x) acc[j] = 0.f;
-    __syncthreads();
-  }
-  float* dst = MODE == kShared ? acc : out;
+  extern __shared__ float acc[];  // [R, G]
+  for (int j = threadIdx.x; j < R * G; j += blockDim.x) acc[j] = 0.f;
+  __syncthreads();
   const int lane = threadIdx.x & 31;
   const long long step = (long long)gridDim.x * blockDim.x * 4;
   // warp-uniform loop: every lane takes part in the match below
@@ -415,7 +439,7 @@ __global__ void __launch_bounds__(kThreads, HELD <= 4 ? 4 : 2)
       const Peers peers = fold_peers(inside ? g[e] : -1, crowd);
       auto fold = [&](int r, float x) {
         x = peer_reduce(x, peers, [](float a, float b) { return a + b; });
-        if (inside && peers.leader && x != 0.f) atomicAdd(dst + (long long)r * G + g[e], x);
+        if (inside && peers.leader && x != 0.f) atomicAdd(acc + r * G + g[e], x);
       };
 #pragma unroll
       for (int r = 0; r < HELD; ++r) {
@@ -424,11 +448,101 @@ __global__ void __launch_bounds__(kThreads, HELD <= 4 ? 4 : 2)
       for (int r = HELD; r < R; ++r) fold(r, i + e < N ? rows[(long long)r * N + i + e] : 0.f);
     }
   }
-  if (MODE == kGlobal) return;
   __syncthreads();
   for (int j = threadIdx.x; j < R * G; j += blockDim.x) {
     const float x = acc[j];
     if (x != 0.f) atomicAdd(&out[j], x);
+  }
+}
+
+// Floats of a group's record in the "global" regime: R rounded up to whole
+// 16-byte vectors (ops/groupby_cuda.py record_width).
+__host__ __device__ inline int record_width(int R) { return (R + 3) & ~3; }
+
+// One row's values x[0..3] of value rows c..c+3 into its group g's record:
+// summed over the lanes that share g when the warp is crowded (every lane
+// must call it), then one 16-byte vector reduction by the leader. A chunk
+// whose four values are all 0 is skipped.
+__device__ __forceinline__ void fold_chunk(float* __restrict__ record, int g, int c, float (&x)[4],
+                                           const Peers& peers, bool lead, int R) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    x[k] = peer_reduce(x[k], peers, [](float a, float b) { return a + b; });
+  }
+  if (lead && (x[0] != 0.f || x[1] != 0.f || x[2] != 0.f || x[3] != 0.f)) {
+    red_add4(record + (long long)g * record_width(R) + c, x[0], x[1], x[2], x[3]);
+  }
+}
+
+// The "global" regime's fold into a group-major record [G, record_width(R)].
+// Loads as additive_shared_kernel (four rows a lane, every load of the step
+// before the first fold, HELD value rows held in registers); the crowding
+// probe runs once a step; a row folds into its group with one vector
+// reduction per four value rows, one L2 operation a row for R <= 4.
+template <int HELD>
+__global__ void __launch_bounds__(kThreads, HELD <= 4 ? kGlobalCtas : 2)
+    additive_global_kernel(const int* __restrict__ ids, const float* __restrict__ rows,
+                           float* __restrict__ record, int R, long long N, int G, int vec) {
+  const int lane = threadIdx.x & 31;
+  const long long step = (long long)gridDim.x * blockDim.x * 4;
+  for (long long base = ((long long)blockIdx.x * blockDim.x + (threadIdx.x & ~31)) * 4;
+       base < N; base += step) {
+    const long long i = base + 4 * lane;
+    const bool whole = vec && i + 4 <= N;
+    int g[4];
+    float v[HELD][4];
+    load4<kGlobalStream>(g, ids, i, N, whole, -1);
+#pragma unroll
+    for (int r = 0; r < HELD; ++r) {
+      if (r < R) {
+        load4<kGlobalStream>(v[r], rows + (long long)r * N, i, N, whole, 0.f);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[r][e] = 0.f;
+      }
+    }
+    const bool crowd = crowded((unsigned)g[0] < (unsigned)G ? g[0] : -1);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool inside = (unsigned)g[e] < (unsigned)G;
+      const Peers peers = fold_peers(inside ? g[e] : -1, crowd);
+      const bool lead = inside && peers.leader;
+#pragma unroll
+      for (int c = 0; c < HELD; c += 4) {
+        if (c < R) {
+          float x[4] = {v[c][e], v[c + 1][e], v[c + 2][e], v[c + 3][e]};
+          fold_chunk(record, g[e], c, x, peers, lead, R);
+        }
+      }
+      for (int c = HELD; c < R; c += 4) {  // value rows past the held ones
+        float x[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float* at = rows + (long long)(c + k) * N + i + e;
+          x[k] = c + k < R && i + e < N ? load1<kGlobalStream>(at) : 0.f;
+        }
+        fold_chunk(record, g[e], c, x, peers, lead, R);
+      }
+    }
+  }
+}
+
+// The record [G, record_width(R)] into out [R, G]: a thread a group, one
+// 16-byte read per four value rows and one 4-byte write a value row, both
+// coalesced over the warp. Bound by its bytes.
+__global__ void additive_record_rows_kernel(const float* __restrict__ record, int R, int G,
+                                            float* __restrict__ out) {
+  const int width = record_width(R);
+  for (long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x; g < G;
+       g += (long long)gridDim.x * blockDim.x) {
+    for (int c = 0; c < R; c += 4) {
+      const float4 v = __ldcs(reinterpret_cast<const float4*>(record + g * width + c));
+      const float x[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (c + k < R) out[(long long)(c + k) * G + g] = x[k];
+      }
+    }
   }
 }
 
@@ -558,32 +672,46 @@ cudaError_t launch_tc(int dev, const DeviceInfo& info, const int* ids, const flo
   return cudaSuccess;
 }
 
-template <int MODE, int HELD>
-cudaError_t launch_atomic(int dev, const DeviceInfo& info, const int* ids, const float* rows,
+template <int HELD>
+cudaError_t launch_shared(int dev, const DeviceInfo& info, const int* ids, const float* rows,
                           float* out, int R, long long N, int G, int vec, cudaStream_t s) {
-  int grid = 0;
-  int smem = 0;
-  if (MODE == kShared) {
-    smem = R * G * (int)sizeof(float);
-    int per_sm = 0;
-    const cudaError_t err =
-        resident_ctas(dev, (const void*)additive_atomic_kernel<MODE, HELD>, kThreads, smem, &per_sm);
-    if (err != cudaSuccess) return err;
-    grid = resident_grid(N, (long long)per_sm * info.sms);
-  } else {
-    grid = streaming_grid(N, info.sms);
+  const int smem = R * G * (int)sizeof(float);
+  int per_sm = 0;
+  const cudaError_t err =
+      resident_ctas(dev, (const void*)additive_shared_kernel<HELD>, kThreads, smem, &per_sm);
+  if (err != cudaSuccess) return err;
+  const int grid = resident_grid(N, (long long)per_sm * info.sms);
+  additive_shared_kernel<HELD><<<grid, kThreads, (size_t)smem, s>>>(ids, rows, out, R, N, G, vec);
+  return cudaSuccess;
+}
+
+cudaError_t launch_global(const DeviceInfo& info, const int* ids, const float* rows, float* record,
+                          float* out, int R, long long N, int G, int vec, cudaStream_t s) {
+  cudaError_t err =
+      cudaMemsetAsync(record, 0, (size_t)record_width(R) * G * sizeof(float), s);
+  if (err != cudaSuccess) return err;
+  if (N > 0) {
+    const int grid = streaming_grid(N, info.sms);
+    if (R <= 4) {
+      additive_global_kernel<4><<<grid, kThreads, 0, s>>>(ids, rows, record, R, N, G, vec);
+    } else {
+      additive_global_kernel<8><<<grid, kThreads, 0, s>>>(ids, rows, record, R, N, G, vec);
+    }
   }
-  additive_atomic_kernel<MODE, HELD><<<grid, kThreads, (size_t)smem, s>>>(ids, rows, out, R, N, G,
-                                                                          vec);
+  if (out != nullptr) {
+    additive_record_rows_kernel<<<streaming_grid(G, info.sms), kThreads, 0, s>>>(record, R, G, out);
+  }
   return cudaSuccess;
 }
 
 }  // namespace
 
-// mode: 0 tensor, 1 shared, 2 global (the wrapper's regime choice). Zeroes
-// `out` first.
-extern "C" int additive_groupby(const int* ids, const float* rows, float* out, int R,
-                                long long N, int G, int mode, void* stream) {
+// mode: 0 tensor, 1 shared, 2 global (the wrapper's regime choice). out:
+// [R, G], zeroed first. The global regime folds into `record`, scratch of
+// [G, record_width(R)] floats, zeroed first, then lays it out into `out`
+// (left as the record when `out` is null); the other regimes ignore it.
+extern "C" int additive_groupby(const int* ids, const float* rows, float* record, float* out,
+                                int R, long long N, int G, int mode, void* stream) {
   if (R <= 0 || G <= 0) return (int)cudaGetLastError();
   const cudaStream_t s = (cudaStream_t)stream;
   int dev = 0;
@@ -595,9 +723,14 @@ extern "C" int additive_groupby(const int* ids, const float* rows, float* out, i
   const long long smem = (long long)R * G * sizeof(float);
   if (mode == kShared && smem > smem_budget(info)) return (int)cudaErrorInvalidValue;
   if (mode != kTensor && mode != kShared && mode != kGlobal) return (int)cudaErrorInvalidValue;
+  const int vec = (N % 4 == 0) && ((uintptr_t)ids % 16 == 0) && ((uintptr_t)rows % 16 == 0);
+  if (mode == kGlobal) {
+    if (record == nullptr) return (int)cudaErrorInvalidValue;
+    const cudaError_t err = launch_global(info, ids, rows, record, out, R, N, G, vec, s);
+    return (int)(err != cudaSuccess ? err : cudaGetLastError());
+  }
   cudaError_t err = cudaMemsetAsync(out, 0, (size_t)R * G * sizeof(float), s);
   if (err != cudaSuccess || N <= 0) return (int)err;
-  const int vec = (N % 4 == 0) && ((uintptr_t)ids % 16 == 0) && ((uintptr_t)rows % 16 == 0);
   if (mode == kTensor) {
     switch ((G + 15) / 16) {
       case 1: err = launch_tc<1>(dev, info, ids, rows, out, R, N, G, vec, s); break;
@@ -609,12 +742,9 @@ extern "C" int additive_groupby(const int* ids, const float* rows, float* out, i
       case 7: err = launch_tc<7>(dev, info, ids, rows, out, R, N, G, vec, s); break;
       default: err = launch_tc<8>(dev, info, ids, rows, out, R, N, G, vec, s); break;
     }
-  } else if (mode == kShared) {
-    err = R <= 4 ? launch_atomic<kShared, 4>(dev, info, ids, rows, out, R, N, G, vec, s)
-                 : launch_atomic<kShared, 8>(dev, info, ids, rows, out, R, N, G, vec, s);
   } else {
-    err = R <= 4 ? launch_atomic<kGlobal, 4>(dev, info, ids, rows, out, R, N, G, vec, s)
-                 : launch_atomic<kGlobal, 8>(dev, info, ids, rows, out, R, N, G, vec, s);
+    err = R <= 4 ? launch_shared<4>(dev, info, ids, rows, out, R, N, G, vec, s)
+                 : launch_shared<8>(dev, info, ids, rows, out, R, N, G, vec, s);
   }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

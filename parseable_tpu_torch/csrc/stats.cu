@@ -58,11 +58,21 @@
 //   chunks with vector loads and sums each thread's rows into a private
 //   column of shared memory: no atomics, ballots or matches in the row loop
 //   (the earlier regimes pay for those on every row: the status key puts
-//   half of the rows in one group). Past 16 cells, the earlier regimes: a per-CTA
-//   [Q, G] f32 accumulator (with the means beside it) in shared memory where
-//   it fits ("shared"), global atomics past it ("global"), warp-adaptive
-//   aggregation of each row's square over the lanes that share a group when a
-//   ballot finds a crowded group.
+//   half of the rows in one group). Past 16 cells, a per-CTA [Q, G] f32
+//   accumulator (with the means beside it) in shared memory where it fits
+//   ("shared"), with warp-adaptive aggregation of each row's square over the
+//   lanes that share a group when a ballot finds a crowded group.
+//   Past it, "global" (the block-local fold's 2^17-2^22 groups): what
+//   bounds it is not its bytes but the L2's random operations, two a live
+//   row and value row, the gather of its group's mean and the add of its
+//   square; the card does about as many a second whatever their width
+//   (PERF.md, scripts/torch_local_fold_variants.py: without the gather the
+//   kernel takes 19 us of 27 at G = 2^20, without the add 16). A lane takes
+//   four rows a step by vector loads, gathers the means of its live, valid
+//   rows only, before any add, probes for crowding once a step, and adds
+//   each nonzero square with one atomic. A [G, 2Q] record of means and
+//   sums, which puts the gather and the add in one sector, was slower (the
+//   same two operations, and a record to build first).
 //
 // Interface: plain C, called through ctypes. Every pointer is a device
 // pointer; `stream` is the caller's cudaStream_t; `mode` is the wrapper's
@@ -861,22 +871,19 @@ __global__ void __launch_bounds__(kCompactThreads, 2)
 
 // ------------------------------------------------------------------ K7
 
-template <int MODE>
 __global__ void __launch_bounds__(kThreads)
-    m2_kernel(const float* __restrict__ vals, const uint8_t* __restrict__ valid,
-              const uint8_t* __restrict__ mask, const int* __restrict__ ids,
-              const float* __restrict__ mean, int Q, int G, long long N, float* __restrict__ out) {
-  extern __shared__ float sm[];  // kShared: [Q * G] sums, then [Q * G] means
+    m2_shared_kernel(const float* __restrict__ vals, const uint8_t* __restrict__ valid,
+                     const uint8_t* __restrict__ mask, const int* __restrict__ ids,
+                     const float* __restrict__ mean, int Q, int G, long long N,
+                     float* __restrict__ out) {
+  extern __shared__ float sm[];  // [Q * G] sums, then [Q * G] means
   const int qg = Q * G;
-  if (MODE == kShared) {
-    for (int j = threadIdx.x; j < qg; j += blockDim.x) {
-      sm[j] = 0.f;
-      sm[qg + j] = mean[j];
-    }
-    __syncthreads();
+  for (int j = threadIdx.x; j < qg; j += blockDim.x) {
+    sm[j] = 0.f;
+    sm[qg + j] = mean[j];
   }
-  float* dst = MODE == kShared ? sm : out;
-  const float* mu = MODE == kShared ? sm + qg : mean;
+  __syncthreads();
+  const float* mu = sm + qg;
   const long long step = (long long)gridDim.x * blockDim.x;
   for (long long base = (long long)blockIdx.x * blockDim.x + (threadIdx.x & ~31); base < N;
        base += step) {
@@ -894,14 +901,93 @@ __global__ void __launch_bounds__(kThreads)
         d2 = __fmul_rn(d, d);
       }
       d2 = peer_reduce(d2, peers, [](float a, float b) { return a + b; });
-      if (g >= 0 && peers.leader && d2 != 0.f) atomicAdd(dst + q * G + g, d2);
+      if (g >= 0 && peers.leader && d2 != 0.f) atomicAdd(sm + q * G + g, d2);
     }
   }
-  if (MODE == kGlobal) return;
   __syncthreads();
   for (int j = threadIdx.x; j < qg; j += blockDim.x) {
     const float x = sm[j];
     if (x != 0.f) atomicAdd(out + j, x);
+  }
+}
+
+// The "global" regime of K7: mean [Q, G] and out [Q, G]. A lane takes a
+// quad of four rows a step (the Quads of the compact regime: 16-byte and
+// 4-byte vector loads where every input reaches a 16-byte phase after the
+// same head), gathers the means of its live, valid rows before any add,
+// probes the warp for crowding once a step, and adds each nonzero square
+// with one atomic. What bounds it is the L2's random operations, two a live
+// row and value row (the gather and the add), not its bytes.
+constexpr int kM2Held = 2;  // value rows a lane holds in registers
+
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads)
+    m2_global_kernel(const float* __restrict__ vals, const uint8_t* __restrict__ valid,
+                     const uint8_t* __restrict__ mask, const int* __restrict__ ids,
+                     const float* __restrict__ mean, int Q, int G, Quads qd,
+                     float* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const long long quads = qd.nq + 2, N = qd.n;
+  const long long step = (long long)gridDim.x * blockDim.x;
+  // warp-uniform loop: every lane takes part in the probe and the match
+  for (long long w = (long long)blockIdx.x * blockDim.x + (threadIdx.x & ~31); w < quads;
+       w += step) {
+    const long long v = w + lane;
+    int g[4], live[4], ok[kM2Held][4];
+    float x[kM2Held][4], mu[kM2Held][4];
+    long long first = 0;
+    int count = 0;
+    if (v < quads) {
+      quad_rows(qd, v, &first, &count);
+      load_part<VEC>(qd, v, ids, g);
+      load_part<VEC>(qd, v, mask, live);
+#pragma unroll
+      for (int p = 0; p < kM2Held; ++p) {
+        if (p < Q) {
+          load_part<VEC>(qd, v, vals + p * N, x[p]);
+          load_part<VEC>(qd, v, valid + p * N, ok[p]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) g[k] = -1, live[k] = 0;
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      g[k] = live[k] && (unsigned)g[k] < (unsigned)G ? g[k] : -1;
+#pragma unroll
+      for (int p = 0; p < kM2Held; ++p) {
+        mu[p][k] = p < Q && g[k] >= 0 && ok[p][k] ? __ldcg(mean + (long long)p * G + g[k]) : 0.f;
+      }
+    }
+    const bool crowd = crowded(g[0]);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const Peers peers = fold_peers(g[k], crowd);
+      const bool lead = g[k] >= 0 && peers.leader;
+#pragma unroll
+      for (int p = 0; p < kM2Held; ++p) {
+        if (p < Q) {
+          float d2 = 0.f;
+          if (g[k] >= 0 && ok[p][k]) {
+            const float d = __fsub_rn(x[p][k], mu[p][k]);
+            d2 = __fmul_rn(d, d);
+          }
+          d2 = peer_reduce(d2, peers, [](float a, float b) { return a + b; });
+          if (lead && d2 != 0.f) atomicAdd(out + (long long)p * G + g[k], d2);
+        }
+      }
+      for (int p = kM2Held; p < Q; ++p) {  // value rows past the held ones
+        float d2 = 0.f;
+        const long long at = (long long)p * N + first + k;
+        if (g[k] >= 0 && valid[at]) {
+          const float d = __fsub_rn(vals[at], __ldcg(mean + (long long)p * G + g[k]));
+          d2 = __fmul_rn(d, d);
+        }
+        d2 = peer_reduce(d2, peers, [](float a, float b) { return a + b; });
+        if (lead && d2 != 0.f) atomicAdd(out + (long long)p * G + g[k], d2);
+      }
+    }
   }
 }
 
@@ -1059,18 +1145,20 @@ extern "C" int centered_m2(const float* vals, const uint8_t* valid, const uint8_
                            const int* ids, const float* mean, int Q, int G, long long N,
                            float* out, int mode, void* stream) {
   if (Q <= 0 || G <= 0) return (int)cudaGetLastError();
+  if (mode != kShared && mode != kGlobal && mode != kCompact) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = cudaMemsetAsync(out, 0, (size_t)Q * G * sizeof(float), s);
   if (err != cudaSuccess || N <= 0) return (int)err;
+  std::vector<std::pair<const void*, int>> inputs{{ids, 4}, {mask, 1}};
+  for (int p = 0; p < Q; ++p) {
+    inputs.push_back({vals + (long long)p * N, 4});
+    inputs.push_back({valid + (long long)p * N, 1});
+  }
+  bool vec = false;
+  const Quads q = make_quads(N, inputs, &vec);
   if (mode == kCompact) {
     if (Q > 2 || Q * G > kM2Cells) return (int)cudaErrorInvalidValue;
-    std::vector<std::pair<const void*, int>> inputs{{ids, 4}, {mask, 1}};
-    for (int p = 0; p < Q; ++p) {
-      inputs.push_back({vals + (long long)p * N, 4});
-      inputs.push_back({valid + (long long)p * N, 1});
-    }
-    bool vec = false, launched = false;
-    const Quads q = make_quads(N, inputs, &vec);
+    bool launched = false;
     auto go = [&](auto kernel) {
       err = launch_compact((const void*)kernel, kM2Quads, kM2Smem, q,
                            [&](int grid, int quads, int smem) {
@@ -1087,13 +1175,17 @@ extern "C" int centered_m2(const float* vals, const uint8_t* valid, const uint8_
   if (mode == kShared) {
     const long long smem = 2LL * Q * G * 4;
     if (smem > kSmemCap) return (int)cudaErrorInvalidValue;
-    return (int)launch((const void*)m2_kernel<kShared>, (int)smem, N, [&](int grid) {
-      m2_kernel<kShared><<<grid, kThreads, (size_t)smem, s>>>(vals, valid, mask, ids, mean, Q, G,
-                                                             N, out);
+    return (int)launch((const void*)m2_shared_kernel, (int)smem, N, [&](int grid) {
+      m2_shared_kernel<<<grid, kThreads, (size_t)smem, s>>>(vals, valid, mask, ids, mean, Q, G, N,
+                                                            out);
     });
   }
-  if (mode != kGlobal) return (int)cudaErrorInvalidValue;
-  return (int)launch((const void*)m2_kernel<kGlobal>, 0, N, [&](int grid) {
-    m2_kernel<kGlobal><<<grid, kThreads, 0, s>>>(vals, valid, mask, ids, mean, Q, G, N, out);
+  // global: a quad a lane a step, as many CTAs as the quads need, at most 8 an SM
+  return (int)launch((const void*)m2_global_kernel<true>, 0, q.nq + 2, [&](int grid) {
+    if (vec) {
+      m2_global_kernel<true><<<grid, kThreads, 0, s>>>(vals, valid, mask, ids, mean, Q, G, q, out);
+    } else {
+      m2_global_kernel<false><<<grid, kThreads, 0, s>>>(vals, valid, mask, ids, mean, Q, G, q, out);
+    }
   });
 }

@@ -28,7 +28,13 @@ does about it:
 - "shared" (R * G * 4 bytes fit in shared memory): a per-CTA accumulator
   with warp-adaptive aggregated shared atomics, as many CTAs as the card
   holds at once.
-- "global": the same atomics straight into the output.
+- "global": the same loads and warp-adaptive aggregation, the sums into a
+  group-major record [G, record_width(R)] in global memory, so that a row's
+  R values (R <= 4) are one 16-byte vector reduction
+  (`red.global.add.v4.f32`) into one L2 sector; a second launch lays the
+  record out as [R, G]. What bounds it is the L2's random operations, not
+  the bytes: the card does about the same number of them a second whatever
+  their width, and the record takes one a row where [R, G] took R.
 
 Kernel B folds order-preserving u32 keys with the same warp-adaptive
 aggregation (`__match_any_sync`, then a max over the peers by shuffles),
@@ -78,7 +84,7 @@ LAUNCHES = {"additive_groupby": 0, "minmax_groupby": 0}
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.additive_groupby.argtypes = [p, p, p, i, ll, i, i, p]
+    lib.additive_groupby.argtypes = [p, p, p, p, i, ll, i, i, p]
     lib.additive_groupby.restype = i
     lib.minmax_groupby.argtypes = [p, p, p, p, p, p, i, i, ll, i, i, p]
     lib.minmax_groupby.restype = i
@@ -128,6 +134,12 @@ def additive_regime(r: int, g: int) -> str:
     if r * g * 4 <= SMEM_BUDGET:
         return "shared"
     return "global"
+
+
+def record_width(r: int) -> int:
+    """Floats of a group's record in the "global" regime: R rounded up to
+    whole 16-byte vectors."""
+    return 4 * -(-r // 4)
 
 
 def bf16_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -188,13 +200,17 @@ def additive_groupby(
     _require(regime in REGIMES, f"unknown regime {regime!r}")
     if r == 0 or n == 0:
         return torch.zeros((r, num_groups), dtype=torch.float32, device=rows.device)
-    out = torch.empty((r, num_groups), dtype=torch.float32, device=rows.device)  # zeroed by the entry
+    # zeroed by the entry, or written whole by the global regime's layout launch
+    out = torch.empty((r, num_groups), dtype=torch.float32, device=rows.device)
+    # the global regime's scratch record, zeroed by the entry
+    record = (torch.empty((num_groups, record_width(r)), dtype=torch.float32, device=rows.device)
+              if regime == "global" else None)
     lib = LIBRARY.load()
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.additive_groupby(
-            group_ids.data_ptr(), rows.data_ptr(), out.data_ptr(), r, n, num_groups,
-            REGIMES[regime], stream,
+            group_ids.data_ptr(), rows.data_ptr(), None if record is None else record.data_ptr(),
+            out.data_ptr(), r, n, num_groups, REGIMES[regime], stream,
         )
     _check(err, f"additive_groupby ({regime})")
     LAUNCHES["additive_groupby"] += 1

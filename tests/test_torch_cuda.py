@@ -139,6 +139,9 @@ A_REGIMES = [
     ("tensor", 3, 8), ("tensor", 5, 64), ("tensor", 5, 128), ("tensor", 1, 16),
     ("shared", 5, 2048), ("shared", 3, 8192), ("shared", 3, 64), ("shared", 12, 100),
     ("global", 5, 65536), ("global", 12, 100),
+    # the block-local fold's group counts
+    ("global", 1, 1 << 17), ("global", 3, 1 << 20), ("global", 4, 1 << 20), ("global", 5, 1 << 17),
+    ("global", 8, 1 << 22), ("global", 3, 1 << 22),
 ]
 
 
@@ -465,11 +468,16 @@ def test_cuda_compact_partial_overflow(cuda, g):
         assert torch.equal(got, want), cap
 
 
+M2_CASES = [(1, 8, "shared"), (2, 64, "shared"), (3, 5000, "shared"),
+            (2, 8, "global"), (2, 65536, "global"),
+            (1, 8, "compact"), (2, 8, "compact"), (1, 16, "compact"), (2, 5, "compact"),
+            # the block-local fold's group counts
+            (1, 1 << 17, "global"), (1, 1 << 20, "global"), (2, 1 << 20, "global"),
+            (1, 1 << 22, "global"), (3, 1 << 17, "global")]
+
+
 @pytest.mark.parametrize("skew", SKEWS)
-@pytest.mark.parametrize("q,g,regime", [(1, 8, "shared"), (2, 64, "shared"), (3, 5000, "shared"),
-                                        (2, 8, "global"), (2, 65536, "global"),
-                                        (1, 8, "compact"), (2, 8, "compact"), (1, 16, "compact"),
-                                        (2, 5, "compact")])
+@pytest.mark.parametrize("q,g,regime", M2_CASES, ids=[f"Q{a}-G{b}-{c}" for a, b, c in M2_CASES])
 def test_cuda_centered_m2_matches_f64(cuda, q, g, regime, skew):
     """K7 within rel 2e-4 of its f64 plain version; a NaN or +-inf value
     poisons its own group only."""
@@ -497,16 +505,17 @@ def test_cuda_centered_m2_matches_f64(cuda, q, g, regime, skew):
     torch.testing.assert_close(got, ref, rtol=2e-4, atol=1e-6, equal_nan=True)
 
 
+@pytest.mark.parametrize("regime,g", [("compact", 8), ("global", 1 << 17)])
 @pytest.mark.parametrize("q", [1, 2])
 @pytest.mark.parametrize("offset", ["all", "ids", "vals", "none"])
-def test_cuda_centered_m2_compact_unaligned_inputs(cuda, q, offset):
-    """K7's compact regime on inputs one element past a 16-byte boundary:
-    all of them (a scalar head of 3 rows, vector loads, a scalar tail of 1)
-    or one (no common phase: scalar loads)."""
+def test_cuda_centered_m2_compact_unaligned_inputs(cuda, q, offset, regime, g):
+    """K7's compact and global regimes on inputs one element past a 16-byte
+    boundary: all of them (a scalar head of 3 rows, vector loads, a scalar
+    tail of 1) or one (no common phase: scalar loads)."""
     from parseable_tpu_torch.ops import stats_cuda as SC
 
     rng = np.random.default_rng(31 + q)
-    n, g = 70_000, 8
+    n = 70_000
     ids = torch.from_numpy(_stat_ids(rng, n + 1, g, "five-groups-half-in-one")).to(cuda)
     mask = torch.from_numpy(rng.random(n + 1) < 0.8).to(cuda)
     flat_vals = torch.from_numpy((rng.random(q * n + 1) * 50_000).astype(np.float32)).to(cuda)
@@ -520,7 +529,7 @@ def test_cuda_centered_m2_compact_unaligned_inputs(cuda, q, offset):
             part(mask, "mask")]
     assert (args[0].data_ptr() % 16 != 0) == (offset in ("all", "ids"))
     mean = torch.from_numpy((rng.random((q, g)) * 50_000).astype(np.float32)).to(cuda)
-    got = SC.centered_m2(*args, mean, regime="compact")
+    got = SC.centered_m2(*args, mean, regime=regime)
     torch.testing.assert_close(got, SC.centered_m2_plain(*args, mean), rtol=2e-4, atol=1e-6)
 
 
@@ -837,21 +846,26 @@ def test_cuda_topk_groups_exact_on_the_hazard_set(cuda, g):
                 assert torch.equal(out.view(torch.int32), pout.view(torch.int32)), (kind, desc, k)
 
 
+@pytest.mark.parametrize("kind", ["uniform", "minute-band", "near-unique", "one-hot-group", "outside"])
 @pytest.mark.parametrize("g", [1 << 17, 1 << 20, 1 << 22])
-def test_cuda_local_fold_regimes_at_large_g(cuda, g):
-    """The local fold's kernels at its group counts: A in its "global"
-    regime, B with its decode launch, K7 in its "global" regime, against
-    their plain versions (counts and min/max exact, sums and M2 rel 2e-4)."""
+def test_cuda_local_fold_regimes_at_large_g(cuda, g, kind):
+    """The local fold's kernels at its group counts, on ids of each kind
+    `chip_smoke.local_ids` makes: A in its "global" regime (R = 3 and 4), B
+    with its decode launch, K7 in its "global" regime, against their plain
+    versions (counts and min/max exact, sums and M2 rel 2e-4)."""
+    import chip_smoke
     from parseable_tpu_torch.ops import stats_cuda as SC
 
     assert G.additive_regime(3, g) == "global" and G.minmax_decode(2, g) == "launch"
     assert SC.m2_regime(1, g) == "global"
     rng = np.random.default_rng(g)
     n = 1 << 20
-    ids_np = rng.integers(0, g, n).astype(np.int32)
-    ids = torch.from_numpy(ids_np).to(cuda)
-    rows = torch.from_numpy(_rows(rng, ids_np, 3)).to(cuda)
-    _assert_additive(G.additive_groupby(ids, rows, g), G.additive_groupby_plain(ids, rows, g), rows)
+    ids = chip_smoke.local_ids(torch, n, g, kind, torch.Generator().manual_seed(g))
+    ids_np = ids.cpu().numpy()
+    for r in (3, 4):
+        rows = torch.from_numpy(_rows(rng, ids_np, r)).to(cuda)
+        _assert_additive(G.additive_groupby(ids, rows, g), G.additive_groupby_plain(ids, rows, g),
+                         rows)
     vals = torch.from_numpy((rng.standard_normal((2, n)) * 100).astype(np.float32)).to(cuda)
     valid = torch.from_numpy(rng.random((2, n)) < 0.9).to(cuda)
     mask = torch.from_numpy(rng.random(n) < 0.8).to(cuda)

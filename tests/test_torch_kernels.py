@@ -89,6 +89,9 @@ CASES = [
     ("ragged-n", 3001, 100, 1, 1, 1, 0, None, None),  # N not a multiple of 2048
     ("no-minmax", 2048, 32, 3, 0, 0, 2, None, None),
     ("count-only", 1000, 16, 0, 0, 0, 0, None, None),
+    # kernel A's "global" regime (a group-major record on the card): R = 8, 3
+    ("global-regime-r8", 16384, 65536, 2, 1, 1, 1, None, None),
+    ("global-regime-r3", 16384, 1 << 17, 1, 0, 0, 0, 9000, None),
 ]
 
 
@@ -280,6 +283,16 @@ REGIME_RULE = [
 @pytest.mark.parametrize("r,g,regime", REGIME_RULE, ids=[f"R{a}-G{b}" for a, b, _ in REGIME_RULE])
 def test_additive_regime_rule(r, g, regime):
     assert G.additive_regime(r, g) == regime
+
+
+# (R, floats of a group's record in kernel A's "global" regime): whole
+# 16-byte vectors, one vector reduction per four value rows
+RECORD_WIDTHS = [(1, 4), (3, 4), (4, 4), (5, 8), (8, 8), (9, 12)]
+
+
+@pytest.mark.parametrize("r,width", RECORD_WIDTHS, ids=[f"R{a}" for a, _ in RECORD_WIDTHS])
+def test_global_regime_record_width(r, width):
+    assert G.record_width(r) == width
 
 
 # (K, G, decode): kernel B's last CTA decodes up to 2048 key entries itself,
