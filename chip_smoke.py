@@ -34,8 +34,10 @@ device-warm: a dense one whose ORDER BY <aggregate> LIMIT picks its groups
 on the card (K8, `csrc/topk.cu`), and two past the dense budget, folded
 block-local (K3a's KEY_CODE, A, B and K7 at 2^20-2^21 groups a block; one
 in pair mode) and merged as partial tables; K8 is held bit for bit against
-its plain version on that query's accumulator and on a hazard set, and
-timed beside torch.topk.
+its plain version on that query's accumulator and on a hazard set, in each
+of its regimes, and timed beside torch.topk there and on topk_multicol's
+accumulator from phase 4; its kernels a call come from the profiled
+queries of phases 4 and 10.
 Phase 5 checks and times each kernel on the inputs the main path gave it
 (one block per shape, recorded in phases 4 and 7; K3 on each query's own
 block) and kernels A and B also on uniform inputs of the same shape; K5-K7
@@ -941,6 +943,28 @@ def topk_hazard_acc(np, rng, rows: int, g: int, count_rows: int, subnormals: boo
     return acc
 
 
+def topk_classes_acc(np, rng, g: int, sizes: tuple[int, int, int]):
+    """An accumulator f32 [3, g] (count, pac, value rows) whose hazard
+    classes are small, so that a k of at most TOPK_BLOCK_MAX_K can cut inside
+    each: `sizes` = (real keys, NaN keys, NULL aggregates) at random slots,
+    the real values small integers (ties), every other slot empty. Returns
+    it and the k that cuts halfway into the NaN and the NULL class, and as
+    far into the empty slots as into the NULL class."""
+    n_real, n_nan, n_null = sizes
+    acc = np.zeros((3, g), np.float32)
+    slots = rng.permutation(g)
+    real, nan = slots[:n_real], slots[n_real:n_real + n_nan]
+    null = slots[n_real + n_nan:n_real + n_nan + n_null]
+    live = np.concatenate([real, nan])
+    acc[0, live] = acc[1, live] = rng.integers(1, 5, live.size)
+    acc[2, real] = rng.integers(0, 5, n_real)
+    acc[2, nan] = np.nan
+    acc[0, null] = rng.integers(1, 5, n_null)
+    cuts = (n_real + n_nan // 2, n_real + n_nan + n_null // 2,
+            n_real + n_nan + n_null + n_null // 2)
+    return acc, cuts
+
+
 class K3Recorder:
     """Records each query's first K3 calls (its block shape, inputs cloned)
     while the real wrappers run; `query` names the query being driven."""
@@ -1138,18 +1162,30 @@ def device_breakdown(prof) -> dict:
     return out
 
 
+# each profiled query that called K8: its K8 kernels (the profiler's count)
+# and its K8 calls (the wrapper's), {"query", "kernels", "calls"}
+K8_PROFILED: list[dict] = []
+
+
 def profiled_query(torch, sess, qname: str, text: str, phase: str, state: str):
     """One more GPU run under torch.profiler: the device's busy time
     (kernels and copies) against the query's wall time, and its breakdown
     (`device_breakdown`)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from parseable_tpu_torch.ops import topk_cuda as K
+
+    before = K.LAUNCHES["topk_groups"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         res = sess.query(text)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     b = device_breakdown(prof)
+    if K.LAUNCHES["topk_groups"] > before:
+        K8_PROFILED.append({"query": f"{phase} {qname} {state}",
+                            "kernels": b["hand_kernels"].get("topk_groups", [0.0, 0])[1],
+                            "calls": K.LAUNCHES["topk_groups"] - before})
     if b["busy"] == 0.0:
         log(f"{phase} {qname} {state} profile: the profiler saw no device time (not measured)")
     else:
@@ -1278,13 +1314,14 @@ def log_residency(torch, phase: str, on_card: bool) -> None:
         f"link profile {json.dumps(get_link().snapshot())}")
 
 
-def drive_main_path(p, device=None) -> tuple[dict, dict, dict, "K3Recorder"]:
+def drive_main_path(p, device=None) -> tuple[dict, dict, dict, "K3Recorder", tuple]:
     """Phase 4: every query on the "gpu" engine (on `device`, default the
     card) and the "cpu" engine, cold then warm; the engines must agree, the
     GPU runs must stay on the device and launch the kernels: the aggregates
     K3a, K3b and A (B for minmax), the selects K3a alone. Returns the launch
     counts of the run, kernels A and B's shapes with their call counts, one
-    block's inputs per shape (cloned), and each query's K3 calls."""
+    block's inputs per shape (cloned), each query's K3 calls, and K8's first
+    call (topk_multicol's; its accumulator cloned)."""
     import torch
 
     from parseable_tpu_torch.ops import fold_cuda as F
@@ -1294,6 +1331,13 @@ def drive_main_path(p, device=None) -> tuple[dict, dict, dict, "K3Recorder"]:
     shapes: dict[str, dict] = {"additive_groupby": {}, "minmax_groupby": {}}
     inputs: dict[str, dict] = {"additive_groupby": {}, "minmax_groupby": {}}
     real_a, real_b = G.additive_groupby, G.minmax_groupby
+    real_topk = K.topk_groups
+    topk_call: list[tuple] = []
+
+    def rec_topk(acc, *args):
+        if not topk_call:
+            topk_call.append((acc.clone(), *args))
+        return real_topk(acc, *args)
 
     def record(name, key, tensors):
         shapes[name][key] = shapes[name].get(key, 0) + 1
@@ -1311,7 +1355,7 @@ def drive_main_path(p, device=None) -> tuple[dict, dict, dict, "K3Recorder"]:
     on_card = device is None or torch.device(device).type == "cuda"
     counts = kernel_counters()
     reset_launches(counts)
-    G.additive_groupby, G.minmax_groupby = rec_a, rec_b
+    G.additive_groupby, G.minmax_groupby, K.topk_groups = rec_a, rec_b, rec_topk
     try:
         with K3Recorder(F) as k3:
             runs = [(q, sql, None) for q, sql in QUERIES.items()]
@@ -1337,14 +1381,14 @@ def drive_main_path(p, device=None) -> tuple[dict, dict, dict, "K3Recorder"]:
                           f"{qname}: K8 launches {delta['topk_groups']}")
                 log(f"phase 4 {qname}: gpu == cpu in every cache state, launches {delta}")
     finally:
-        G.additive_groupby, G.minmax_groupby = real_a, real_b
+        G.additive_groupby, G.minmax_groupby, K.topk_groups = real_a, real_b, real_topk
     launches = launch_counts(counts)
     if on_card:
         for name in (*G.LAUNCHES, *F.LAUNCHES, *K.LAUNCHES):
             check(launches[name] > 0, f"{name} was never launched on the main path")
     log(f"phase 4 launches on the main path: {launches}")
     log_residency(torch, "phase 4", on_card)
-    return launches, shapes, inputs, k3
+    return launches, shapes, inputs, k3, topk_call[0] if topk_call else None
 
 
 def drive_list3(device=None) -> int:
@@ -1715,12 +1759,21 @@ def stats_case(torch, SC, timer, kind: str, key: tuple, data: tuple, inputs: str
         def call(reg):
             return lambda k: SC.centered_m2(*sets[k], regime=reg)
 
+        def library_full(k):
+            # the same function from K7's own inputs: the mean's gather, the
+            # mask, the square and index_add_, all in the timed window
+            ids, vals, valid, mask, mean = sets[k]
+            d = torch.where(valid & mask[None], vals - mean[:, ids], 0.0)
+            return lib_out.index_add_(1, ids, d * d)
+
         fns = {
             "ms": call(res["regime"]),
             "plain_ms": lambda k: SC.centered_m2_plain(*sets[k]),
             "library_ms": lambda k: lib_out.index_add_(1, *lib_in[k]),
+            "library_full_ms": library_full,
         }
-        res["library"] = "index_add_ of the centred squares"
+        res["library"] = ("library_ms: index_add_ of the centred squares built before the "
+                          "window; library_full_ms: the gather, mask, square and index_add_ in it")
     for reg in dict.fromkeys(turns):  # before K6's timed calls add into acc
         if kind == "distinct_fold":
             other = SC.distinct_fold(acc.clone(), ids, codes, mask, cap, lut, regime=reg)
@@ -1998,17 +2051,24 @@ def same_top(name: str, gpu, cpu, keys: tuple, order_col: str, lookup) -> None:
 def k8_exact(torch, K, acc, rows: dict, what: str) -> int:
     """K8 against its plain version on the card, bit for bit in the ids and
     the gathered columns, for each kind in `rows` ({kind: (value row, pac
-    row, M2 row)}), both orders, and k of 1, 10 and TOPK_MAX_K; returns the
-    cases checked."""
+    row, M2 row)}), both orders, k of 1, 10, both sides of the regime
+    boundary and TOPK_MAX_K (those up to G), in the rule's regime and in
+    every regime that takes k; returns the cases checked."""
     n = 0
+    ks = [k for k in (1, 10, K.TOPK_BLOCK_MAX_K, K.TOPK_BLOCK_MAX_K + 1, K.TOPK_MAX_K)
+          if k <= acc.shape[1]]
     for kind, (val, pac, sq) in rows.items():
         for desc in (True, False):
-            for k in (1, 10, K.TOPK_MAX_K):
-                out, idx = K.topk_groups(acc, kind, val, pac, sq, desc, k)
+            for k in ks:
                 pout, pidx = K.topk_groups_plain(acc, kind, val, pac, sq, desc, k)
-                check(torch.equal(idx, pidx) and torch.equal(out.view(torch.int32), pout.view(torch.int32)),
-                      f"K8 not exact: {what} {kind} {'desc' if desc else 'asc'} k={k}")
-                n += 1
+                for regime in (None, *(r for r in K.REGIMES
+                                       if r != "block" or k <= K.TOPK_BLOCK_MAX_K)):
+                    out, idx = K.topk_groups(acc, kind, val, pac, sq, desc, k, regime=regime)
+                    check(torch.equal(idx, pidx)
+                          and torch.equal(out.view(torch.int32), pout.view(torch.int32)),
+                          f"K8 not exact: {what} {kind} {'desc' if desc else 'asc'} k={k} "
+                          f"regime {regime or K.topk_regime(acc.shape[1], k)}")
+                    n += 1
     return n
 
 
@@ -2020,7 +2080,7 @@ def topk_case(torch, K, timer, acc, kind: str, val: int, pac: int, sq: int, desc
     score reads once, the k columns gathered and written, the k ids."""
     r, g = acc.shape
     res = {"shape": f"R={r} G={g} k={k} {kind} {'desc' if desc else 'asc'}", "inputs": inputs,
-           "regime": None}
+           "regime": K.topk_regime(g, k)}
     k8_exact(torch, K, acc, {kind: (val, pac, sq)}, inputs)
     res["max_abs_err"] = 0.0
     read = {0, pac, val} | ({sq} if kind in ("var", "stddev") else set())
@@ -2035,9 +2095,15 @@ def topk_case(torch, K, timer, acc, kind: str, val: int, pac: int, sq: int, desc
     }
     res.update(timed(timer, fns, copies))
     per_kernel, seen = profiled_ms(torch, fns["ms"], (KERNEL_SYMBOLS["topk_groups"],))
-    # one call is 12 launches (score, 8 select passes, compact, sort, gather)
-    res["profiler_ms"] = per_kernel * seen / 10 if per_kernel else None
+    # the C entry launches 1 kernel a call in the block regime, 12 in the
+    # radix regime (score, 8 select passes, compact, sort, gather). Late in a
+    # run the profiler drops records (launches a call are read from the
+    # profiled queries, `K8_PROFILED`): a dropped record lowers `seen`, and
+    # none raises it.
+    launches = 1 if res["regime"] == "block" else 12
+    res["profiler_ms"] = per_kernel * launches if per_kernel else None
     res["profiler_kernels"] = seen
+    check(seen <= 10 * launches, f"K8 {res['regime']}: {seen} kernels in 10 calls ({res['shape']})")
     res["sum_ms"] = stream_sum_ms(torch, timer, nbytes)
     res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 8 * g)
     res["bytes"] = nbytes
@@ -2734,7 +2800,7 @@ def main() -> int:
     try:
         p = build_lake(work, args.seed, MINUTES, N_BLOCK)
         phase_done("3 lake")
-        launches, shapes, inputs, k3_main = drive_main_path(p)
+        launches, shapes, inputs, k3_main, k8_main = drive_main_path(p)
         phase_done("4 main path")
         stats_launches, stats_shapes, stats_inputs_, k3_stats = drive_stats(p)
         phase_done("7 statistics")
@@ -2749,6 +2815,16 @@ def main() -> int:
 
     # -- phase 10: high cardinality, on a lake of its own
     hc_launches, k8_case, k3_hc, hc_calls = drive_highcard(torch, args.seed, timer)
+    # K8 on topk_multicol's own accumulator from phase 4, beside hc_topk_path's
+    k8_multicol = topk_case(torch, K, timer, *k8_main, "main path, phase 4")
+    log(f"phase 10 topk_groups (topk_multicol) {json.dumps(k8_multicol)}")
+    # K8 kernels a call, from the profiled runs of phases 4 and 10 (one K8
+    # call a query): one in the block regime, which both queries take (a
+    # record the profiler drops lowers the count, none raises it; None if it
+    # kept none)
+    k8_launches = max((r["kernels"] / r["calls"] for r in K8_PROFILED), default=0) or None
+    check((k8_launches or 0) <= 1, f"K8 launches a call on the main path: {K8_PROFILED}")
+    log(f"phase 10 K8 launches a call (profiled queries): {k8_launches} {json.dumps(K8_PROFILED)}")
     phase_done("10 high cardinality")
 
     # -- phase 6: the HTTP server, ingest and queries, on the card
@@ -2860,8 +2936,8 @@ def main() -> int:
                 "sum_ms": top["sum_ms"],
             }
         )
-    # K8: timed in phase 10 on hc_topk_path's own accumulator; its launches
-    # are phase 4's (topk_multicol)
+    # K8: timed in phase 10 on hc_topk_path's own accumulator (and on
+    # topk_multicol's from phase 4); its launches are phase 4's (topk_multicol)
     report.append(
         {
             "name": "topk_groups",
@@ -2874,6 +2950,9 @@ def main() -> int:
                                        "library_ms", "shape", "regime", "ms_l2_warm",
                                        "profiler_ms", "sum_ms")},
             "inputs": "main path (phase 10 hc_topk_path), L2-cold",
+            "launches_per_call": k8_launches,
+            "topk_multicol": {k: k8_multicol[k] for k in ("shape", "regime", "ms", "plain_ms",
+                                                           "bound_ms", "library_ms")},
         }
     )
     phase_done("5 kernel times")

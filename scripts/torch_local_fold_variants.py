@@ -11,7 +11,9 @@ outputs:
   [G, record_width(R)] alone; `record+rows`: with the launch that lays the
   record out as [R, G] (what the wrapper returns); `record+copy`: the fold,
   then torch's contiguous copy of the record's [R, G] view instead;
-- K7 `source`: the source's "global" regime;
+- K7 `source`: the source's "global" regime; `library`: the same function
+  in torch ops from K7's own inputs, the mean's gather, the mask, the
+  square and `index_add_` all inside the timed window (timed only);
 - `parent`: the "global" kernels of `DIR/groupby.cu` and `DIR/stats.cu`
   (e.g. `git archive <commit> parseable_tpu_torch/csrc` unpacked), with the
   interface they had;
@@ -260,6 +262,9 @@ def main() -> int:
             def call(name, k):
                 i, v, ok, m, mu = sets[k]
                 out = flat
+                if name == "library":
+                    d = torch.where(ok & m[None], v - mu[:, i], 0.0)
+                    return out.index_add_(1, i, d * d)
                 if name == "k7_record":
                     mu = out = records[k]
                 err = libs_k7[name].centered_m2(v.data_ptr(), ok.data_ptr(), m.data_ptr(),
@@ -275,9 +280,9 @@ def main() -> int:
                 if not chip_smoke.m2_close(torch, call(name, 0), plain):
                     raise SystemExit(f"{label} {name}: K7 disagrees with its plain version")
 
-            names = list(libs_k7)
+            names = [*libs_k7, "library"]
         for name in names:
-            if VARIANTS.get(name, (0, 0, ""))[2] != "diagnostic":
+            if VARIANTS.get(name, (0, 0, ""))[2] != "diagnostic" and name != "library":
                 check(name)
         torch.cuda.synchronize()
         times: dict[str, list] = {d: [] for d in names}

@@ -824,11 +824,25 @@ def test_cuda_select_matches_plain_path(cuda, sql, monkeypatch):
 # ------------------------------------------------- K8 (topk.cu), high cardinality
 
 
-@pytest.mark.parametrize("g", [8192, 1 << 17, 1 << 19])
+def _k8_exact(K, acc, kind, rows, desc, k, regime=None):
+    """One K8 call against its plain version, bit for bit in the ids and the
+    gathered f32 bits; one launch counted."""
+    args = (acc, kind, *rows, desc, k)
+    before = K.LAUNCHES["topk_groups"]
+    out, idx = K.topk_groups(*args, regime=regime)
+    assert K.LAUNCHES["topk_groups"] == before + 1
+    pout, pidx = K.topk_groups_plain(*args)
+    assert torch.equal(idx, pidx), (kind, desc, k, regime)
+    assert torch.equal(out.view(torch.int32), pout.view(torch.int32)), (kind, desc, k, regime)
+
+
+@pytest.mark.parametrize("g", [8192, 8193, 3 * 2**15 + 7, 1 << 17, 1 << 19])
 def test_cuda_topk_groups_exact_on_the_hazard_set(cuda, g):
     """K8 against its plain version, bit for bit in the ids and the gather:
     ties at the cut, NaN, +-inf, +-3.4e38, +-0.0 and subnormal keys, NULL
-    aggregates and empty slots, every kind, both orders, k from 1 to 4,096."""
+    aggregates and empty slots, every kind, both orders, k from 1 to 4,096
+    (both sides of the regime boundary), in every regime that takes the
+    shape, on G that the block regime's grid cuts evenly and unevenly."""
     import chip_smoke
     from parseable_tpu_torch.ops import topk_cuda as K
 
@@ -836,14 +850,46 @@ def test_cuda_topk_groups_exact_on_the_hazard_set(cuda, g):
     acc = acc.to(cuda)
     for kind in K.KINDS:
         for desc in (True, False):
-            for k in (1, 10, K.TOPK_MAX_K):
-                args = (acc, kind, 6, 3, 9, desc, k)
-                before = K.LAUNCHES["topk_groups"]
-                out, idx = K.topk_groups(*args)
-                assert K.LAUNCHES["topk_groups"] == before + 1
-                pout, pidx = K.topk_groups_plain(*args)
-                assert torch.equal(idx, pidx), (kind, desc, k)
-                assert torch.equal(out.view(torch.int32), pout.view(torch.int32)), (kind, desc, k)
+            for k in (1, 10, K.TOPK_BLOCK_MAX_K, K.TOPK_BLOCK_MAX_K + 1, K.TOPK_MAX_K):
+                for regime in (None, *(r for r in K.REGIMES
+                                       if r != "block" or k <= K.TOPK_BLOCK_MAX_K)):
+                    _k8_exact(K, acc, kind, (6, 3, 9), desc, k, regime)
+
+
+@pytest.mark.parametrize("g", [8193, 1 << 17])
+def test_cuda_topk_groups_exact_on_ties_and_class_cuts(cuda, g):
+    """Every score equal (the picks are the k lowest indices), and cuts
+    inside the NaN keys, the NULL aggregates and the empty slots, in both
+    regimes."""
+    import chip_smoke
+    from parseable_tpu_torch.ops import topk_cuda as K
+
+    ties = torch.ones((3, g), dtype=torch.float32, device=cuda)
+    classes, cuts = chip_smoke.topk_classes_acc(np, np.random.default_rng(g), g, (40, 30, 30))
+    classes = torch.from_numpy(classes).to(cuda)
+    for regime in K.REGIMES:
+        for desc in (True, False):
+            for k in (1, 10, K.TOPK_BLOCK_MAX_K):
+                _k8_exact(K, ties, "sum", (2, 1, 0), desc, k, regime)
+                _, idx = K.topk_groups(ties, "sum", 2, 1, 0, desc, k, regime=regime)
+                assert idx.tolist() == list(range(k))
+            for kind in ("sum", "avg", "count_star"):
+                for k in cuts:
+                    _k8_exact(K, classes, kind, (2, 1, 0), desc, k, regime)
+
+
+def test_cuda_topk_block_regime_takes_its_largest_g(cuda):
+    """The block regime at TOPK_BLOCK_MAX_G and TOPK_BLOCK_MAX_K (the largest
+    slice and candidate buffer the rule gives it), and the rule's regime one
+    group past it."""
+    import chip_smoke
+    from parseable_tpu_torch.ops import topk_cuda as K
+
+    for g in (K.TOPK_BLOCK_MAX_G, K.TOPK_BLOCK_MAX_G + 1):
+        acc = torch.from_numpy(chip_smoke.topk_hazard_acc(np, np.random.default_rng(g), 3, g, 2))
+        acc = acc.to(cuda)
+        for k in (10, K.TOPK_BLOCK_MAX_K):
+            _k8_exact(K, acc, "sum", (2, 1, 0), True, k)
 
 
 @pytest.mark.parametrize("kind", ["uniform", "minute-band", "near-unique", "one-hot-group", "outside"])

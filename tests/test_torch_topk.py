@@ -244,3 +244,124 @@ def test_null_aggregate_groups_survive(low_topk_threshold):
     assert got == jax_tpu_rows(sql, [t])
     assert len(got) == 80 and all(r["s"] is not None for r in got[:50])
     assert all(r["s"] is None for r in got[50:])
+
+
+# ------------------------------------------------- the "block" regime's pick
+
+
+def check_block_pick(acc: torch.Tensor, kind: str, rows: tuple, desc: bool, k: int,
+                     size: int) -> None:
+    """`topk_block_model` with slices of `size` groups against lax.top_k
+    (CPU JAX) on the same int32 scores and against `topk_groups_plain`:
+    the same ids, in the same order."""
+    score = K.scores_plain(acc, kind, *rows, desc)
+    got = K.topk_block_model(score, k, size)
+    assert np.array_equal(got.numpy(), np.asarray(JK.topk(jnp.asarray(score.numpy()), k)[1]))
+    _, idx = K.topk_groups_plain(acc, kind, *rows, desc, k)
+    assert torch.equal(got, idx), (kind, desc, k, size)
+
+
+def value_acc(values: np.ndarray) -> torch.Tensor:
+    """count, pac and value rows: every slot occupied and not NULL."""
+    acc = np.ones((3, values.size), np.float32)
+    acc[2] = values
+    return torch.from_numpy(acc)
+
+
+# (G, k, groups a slice) of each case; the kernel's own grids where named so
+GRID_G = (8193, 3 * 2**15 + 7)
+BLOCK_CASES = {
+    "ties-across-slices": (700, 25, 7),
+    "all-equal": (1000, 100, 64),
+    "ragged-last-slice": (1001, 37, 100),
+    "k-above-a-slice": (600, 50, 16),
+    "k-equals-g": (300, 300, 32),
+    "one-slice": (500, 10, 500),
+    "kernel-grid-8193": (GRID_G[0], 10, K.block_grid(GRID_G[0], 132)[1]),
+    "kernel-grid-98311": (GRID_G[1], K.TOPK_BLOCK_MAX_K, K.block_grid(GRID_G[1], 132)[1]),
+}
+
+
+@pytest.mark.parametrize("desc", [True, False], ids=["desc", "asc"])
+@pytest.mark.parametrize("case", list(BLOCK_CASES))
+def test_block_pick_matches_jax(case, desc):
+    """Ties in runs of 9 that straddle slices of 7, every score equal (the
+    picks are the k lowest indices), a last slice shorter than the rest, k
+    above a slice's size, k == G, one slice, and the kernel's own grids at
+    G that do not divide evenly."""
+    g, k, size = BLOCK_CASES[case]
+    rng = np.random.default_rng(g + k)
+    if case == "ties-across-slices":
+        values = np.repeat(rng.integers(0, 4, g // 9 + 1), 9)[:g]
+    elif case == "all-equal":
+        values = np.ones(g)
+    else:
+        values = rng.integers(0, 50, g)
+    acc = value_acc(values.astype(np.float32))
+    check_block_pick(acc, "sum", (2, 1, 0), desc, k, size)
+    if case == "all-equal":
+        assert torch.equal(K.topk_block_model(K.scores_plain(acc, "sum", 2, 1, 0, desc), k, size),
+                           torch.arange(k, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("size", [37, K.block_grid(8193, 132)[1]], ids=["slice-37", "kernel-grid"])
+@pytest.mark.parametrize("cut", ["nan", "null", "empty"])
+@pytest.mark.parametrize("kind,desc", [("sum", True), ("avg", False)])
+def test_block_pick_cuts_inside_each_hazard_class(kind, desc, cut, size):
+    """The cut halfway into the NaN keys, the NULL aggregates and the empty
+    slots, at k <= TOPK_BLOCK_MAX_K: below every real key, in that order,
+    and the lower index first inside a class."""
+    acc, cuts = chip_smoke.topk_classes_acc(np, np.random.default_rng(5), 8193, (40, 30, 30))
+    k = cuts[("nan", "null", "empty").index(cut)]
+    assert k <= K.TOPK_BLOCK_MAX_K
+    acc = torch.from_numpy(acc)
+    score = K.scores_plain(acc, kind, 2, 1, 0, desc)
+    klass = {"nan": K.NAN_SCORE, "null": K.NULL_SCORE, "empty": K.EMPTY_SCORE}[cut]
+    assert int((score > klass).sum()) < k < int((score >= klass).sum())
+    check_block_pick(acc, kind, (2, 1, 0), desc, k, size)
+
+
+def test_block_pick_on_the_hazard_set(sides, acc):
+    """Every kind, both orders, at k = 1, 10 and TOPK_BLOCK_MAX_K, on the
+    kernel's grid of G = 8,192 (16 slices of 512)."""
+    _, port = sides
+    a = torch.from_numpy(acc)
+    size = K.block_grid(G, 132)[1]
+    for si, kind in enumerate(KINDS):
+        for desc in (True, False):
+            for k in (1, 10, K.TOPK_BLOCK_MAX_K):
+                check_block_pick(a, kind, K.rows_for(port.lay, kind, si), desc, k, size)
+
+
+@pytest.mark.parametrize(
+    "g,k,want",
+    [(8192, 10, "block"), (1 << 17, 10, "block"), (1 << 17, K.TOPK_BLOCK_MAX_K, "block"),
+     (1 << 17, K.TOPK_BLOCK_MAX_K + 1, "radix"), (1 << 17, K.TOPK_MAX_K, "radix"),
+     (K.TOPK_BLOCK_MAX_G, 10, "block"), (K.TOPK_BLOCK_MAX_G + 1, 10, "radix"), (1, 1, "block")],
+)
+def test_topk_regime_rule(g, k, want):
+    assert K.topk_regime(g, k) == want
+
+
+@pytest.mark.parametrize("g", [1, 2, 511, 512, 513, 8192, 8193, 3 * 2**15 + 7, 1 << 17,
+                               K.TOPK_BLOCK_MAX_G])
+def test_block_grid_covers_every_group(g):
+    """Every CTA of the grid gets at least one group and together they get
+    all of them; on a card of 132 SMs a slice's scores and the merge's
+    candidates at TOPK_BLOCK_MAX_K fit the kernel's shared-memory cap."""
+    for sms in (1, 16, 132):
+        ctas, size = K.block_grid(g, sms)
+        assert 1 <= ctas <= sms and (ctas - 1) * size < g <= ctas * size
+    ctas, size = K.block_grid(g, 132)
+    assert max(4 * size, 8 * ctas * min(K.TOPK_BLOCK_MAX_K, size)) <= 200 * 1024
+
+
+def test_the_wrapper_checks_its_regime():
+    a = torch.zeros((3, 200))
+    with pytest.raises(K.KernelError):
+        K.topk_groups(a, "sum", 1, 1, 0, True, 4, regime="bitonic")
+    with pytest.raises(K.KernelError):
+        K.topk_groups(a, "sum", 1, 1, 0, True, K.TOPK_BLOCK_MAX_K + 1, regime="block")
+    for regime in K.REGIMES:
+        out, idx = K.topk_groups(a, "sum", 1, 1, 0, True, 4, regime=regime)
+        assert out.shape == (3, 4) and idx.tolist() == [0, 1, 2, 3]
