@@ -38,6 +38,17 @@ its plain version on that query's accumulator and on a hazard set, in each
 of its regimes, and timed beside torch.topk there and on topk_multicol's
 accumulator from phase 4; its kernels a call come from the profiled
 queries of phases 4 and 10.
+Phases 4, 7, 8 and 10 run with the result cache off, and every GPU run
+there must keep every block on the card under the link and host rates the
+card has measured (`cpu_adaptive` 0). Phase 11 (after phase 8 on the
+phase 3 lake, and at the end of phase 10 on its lake) pins a degraded link
+profile: groupby, select_filter and hc_minute_path, cold, must fold every
+block on the host with the CPU engine's answer, the background warmer must
+land every routed block in the hot set, and the next run, on the measured
+profile, must be device-warm; then, with a 64 MiB result cache, groupby
+over an API time range must miss, then hit with the same table, a query
+reaching the staging window must not use the cache, and a new minute
+synced into the lake must evict the entry.
 Phase 5 checks and times each kernel on the inputs the main path gave it
 (one block per shape, recorded in phases 4 and 7; K3 on each query's own
 block) and kernels A and B also on uniform inputs of the same shape; K5-K7
@@ -1100,6 +1111,9 @@ def build_lake(work: Path, seed: int, minutes: int, rows: int, stream_name: str 
     t0 = time.perf_counter()
     opts = Options()
     opts.local_staging_path = work / "staging"
+    # the engine phases measure the engine in each cache state, not the
+    # result cache (phase 11 turns it on)
+    opts.query_result_cache_bytes = 0
     p = Parseable(opts, StorageOptions(root=work / "data"))
     stream = p.create_stream_if_not_exists(stream_name)
     rng = np.random.default_rng(seed)
@@ -1292,6 +1306,8 @@ def state_runs(torch, p, qname: str, text: str, phase: str, device, rel=None,
     for res in out:
         routes = res.stats["device_routes"]
         check(routes["cpu_fallback"] == 0, f"{qname}: cpu_fallback {routes}")
+        # the card's measured link and host rates keep every block on it
+        check(routes["cpu_adaptive"] == 0, f"{qname}: cpu_adaptive {routes}")
         check(res.stats["scan_errors"] == 0, f"{qname}: scan errors")
         if compare is not None:
             compare(qname, res.table, cpu.table)
@@ -1496,7 +1512,8 @@ def drive_pressure(torch, p, device=None) -> dict:
             dt = time.perf_counter() - t
             same_result(f"pressure {run}", res.table, cpu.table)
             r, hot = res.stats["device_routes"], res.stats["stages"]["hotset"]
-            check(r["cpu_fallback"] == 0, f"pressure {run}: cpu_fallback {r}")
+            check(r["cpu_fallback"] == 0 and r["cpu_adaptive"] == 0,
+                  f"pressure {run}: a block off the card {r}")
             log(f"phase 8 groupby {run} (hot-set budget {budget} of {resident} resident bytes): "
                 f"wall {dt * 1e3:.3f} ms, stages "
                 f"{ {k: v for k, v in res.stats['stages'].items() if k != 'hotset'} } "
@@ -2112,7 +2129,7 @@ def topk_case(torch, K, timer, acc, kind: str, val: int, pac: int, sq: int, desc
 
 
 def drive_highcard(torch, seed: int, timer, device=None) -> tuple[dict, dict | None, "K3Recorder",
-                                                                 dict]:
+                                                                 dict, dict]:
     """Phase 10: high cardinality. A lake of bench.py's "highcard" profile
     (8 one-minute files of 2^20 rows, a stream of its own) and HC_QUERIES on
     the "gpu" engine (on `device`, default the card) cold, disk-warm and
@@ -2121,9 +2138,11 @@ def drive_highcard(torch, seed: int, timer, device=None) -> tuple[dict, dict | N
     (`device_local`), K8 launched by hc_topk_path. On the card, K8 against
     its plain version on hc_topk_path's own accumulator and on
     `topk_hazard_acc`, bit for bit, then timed on that accumulator
-    (`topk_case`). Returns the phase's launch counts, K8's timing (None off
-    the card), the queries' K3 calls, and each query's first call of A, B
-    and K7 at each shape, inputs cloned, with its call count."""
+    (`topk_case`). Then phase 11 (a) on this lake: hc_minute_path under a
+    degraded link (`gate_runs`). Returns the phase's launch counts, K8's
+    timing (None off the card), the queries' K3 calls, each query's first
+    call of A, B and K7 at each shape, inputs cloned, with its call count,
+    and phase 11's walls on this lake."""
     import numpy as np
 
     from parseable_tpu_torch.ops import fold_cuda as F
@@ -2216,6 +2235,20 @@ def drive_highcard(torch, seed: int, timer, device=None) -> tuple[dict, dict | N
                               f"{qname}: B or K7 never launched {delta}")
                 log(f"phase 10 {qname}: gpu == cpu in {len(HC_STATES)} cache states, "
                     f"launches {delta}")
+        K.topk_groups = real_topk
+        G.additive_groupby, G.minmax_groupby = real["additive_groupby"], real["minmax_groupby"]
+        SC.centered_m2 = real["centered_m2"]
+        launches = launch_counts(counts)
+        log(f"phase 10 launches: {launches}")
+        log_residency(torch, "phase 10", on_card)
+        # phase 11 (a) on this lake: the local-mode query under a degraded link
+        t = time.perf_counter()
+        reset_launches(counts)
+        sql, keys, _ = HC_QUERIES["hc_minute_path"]
+        gate = gate_runs(torch, p, [("hc_minute_path", sql.format(stream=HC_STREAM),
+                                     lambda n, g, c: same_table(n, g, c, keys))], "phase 11", device)
+        log(f"phase 11 (highcard lake) launches {launch_counts(counts)}, "
+            f"{time.perf_counter() - t:.3f} s")
     finally:
         K.topk_groups = real_topk
         G.additive_groupby, G.minmax_groupby = real["additive_groupby"], real["minmax_groupby"]
@@ -2225,10 +2258,8 @@ def drive_highcard(torch, seed: int, timer, device=None) -> tuple[dict, dict | N
         get_hotset().clear()
         shutdown_enccache()
         shutil.rmtree(work, ignore_errors=True)
-    launches = launch_counts(counts)
-    log(f"phase 10 launches: {launches}")
     if not on_card:
-        return launches, None, k3, calls
+        return launches, None, k3, calls, gate
     # K8 on the card: hc_topk_path's own accumulator, every kind scoring the
     # rows the query's call read (its value row also as the M2 row), then the
     # hazard set, bit for bit
@@ -2242,7 +2273,165 @@ def drive_highcard(torch, seed: int, timer, device=None) -> tuple[dict, dict | N
         f"aggregates, empty slots)")
     res = topk_case(torch, K, timer, acc, kind, val, pac, sq, desc, k, "main path")
     log(f"phase 10 topk_groups {json.dumps(res)}")
-    return launches, res, k3, calls
+    return launches, res, k3, calls, gate
+
+
+# ------------------------------------------------- gate and result cache
+
+WARM_DEADLINE_S = 300  # the warmer lands every routed block within this
+# the API time range of phase 11's result-cache runs: the whole lake, and
+# far before the staging window, so the queries can use the cache
+LAKE_RANGE = {"start_time": "2024-05-01T00:00:00Z", "end_time": "2024-05-02T00:00:00Z"}
+
+
+def slow_link():
+    """A link profile taught a degraded link: every copy, either way and of
+    any size, takes 1.1 s (tests/test_adaptive_link.py's slow link, with
+    its latency taught too, so that the block copies the warmer times on
+    the card cannot teach it a fast link in the middle of a query)."""
+    from parseable_tpu_torch.ops.link import LinkProfile
+
+    prof = LinkProfile()
+    for _ in range(20):
+        for nbytes in (1 << 10, 1 << 20):
+            prof.record_h2d(nbytes, 1.1)
+            prof.record_d2h(nbytes, 1.1)
+    return prof
+
+
+def gate_runs(torch, p, runs: list, phase: str, device=None) -> dict:
+    """Phase 11 (a): each query in `runs` ((name, text, compare(name, gpu,
+    cpu))) on the "gpu" engine cold on the card's measured profile, then
+    cold under a degraded link (`slow_link`, pinned): every block goes to
+    the host (`cpu_adaptive` == the blocks scanned) and the answer equals
+    the CPU engine's; the warmer then lands every routed block in the hot
+    set before WARM_DEADLINE_S, and with the measured profile back the next
+    run is device-warm. Returns each query's walls (ms) and warm time."""
+    from parseable_tpu_torch.ops import link as L
+    from parseable_tpu_torch.ops.enccache import get_enccache
+    from parseable_tpu_torch.ops.hotset import get_hotset
+    from parseable_tpu_torch.query.session import QuerySession
+
+    on_card = device is None or torch.device(device).type == "cuda"
+    cache = get_enccache(p.options)
+
+    def cold() -> None:
+        get_hotset().clear()
+        cache.wait_idle()
+        for f in cache.root.glob("*.enc"):
+            f.unlink()
+
+    def timed(text: str):
+        t = time.perf_counter()
+        res = QuerySession(p, engine="gpu", device=device).query(text)
+        if on_card:
+            torch.cuda.synchronize()
+        return res, (time.perf_counter() - t) * 1e3
+
+    out = {}
+    for qname, text, compare in runs:
+        cpu = QuerySession(p, engine="cpu").query(text)
+        cold()
+        measured, measured_ms = timed(text)
+        r = measured.stats["device_routes"]
+        check(r["cpu_adaptive"] == r["cpu_fallback"] == 0, f"{qname} measured cold: {r}")
+        cold()
+        with L.pin_link(slow_link()):
+            degraded, degraded_ms = timed(text)
+        r, st = degraded.stats["device_routes"], degraded.stats
+        blocks = st["files_total"] - st["files_pruned"]
+        check(blocks > 0 and st["rows_scanned"] >= blocks * (1 << 16),
+              f"{qname}: {blocks} blocks, {st['rows_scanned']} rows")
+        check((r["cpu_adaptive"], r["cpu_fallback"], r["device_warm"], r["device_cold"])
+              == (blocks, 0, 0, 0), f"{qname} degraded: {blocks} blocks but routes {r}")
+        compare(f"{qname} degraded", degraded.table, cpu.table)
+        t = time.perf_counter()
+        while get_hotset().stats_snapshot()["entries"] < blocks:
+            check(time.perf_counter() - t < WARM_DEADLINE_S,
+                  f"{qname}: the warmer landed {get_hotset().stats_snapshot()['entries']} of "
+                  f"{blocks} blocks in {WARM_DEADLINE_S} s")
+            time.sleep(0.01)
+        warmed_ms = (time.perf_counter() - t) * 1e3
+        L.shutdown_warmer()
+        warm, warm_ms = timed(text)
+        r = warm.stats["device_routes"]
+        check((r["device_warm"], r["device_cold"], r["cpu_adaptive"], r["cpu_fallback"])
+              == (blocks, 0, 0, 0), f"{qname} after the warmer: {blocks} blocks but routes {r}")
+        compare(f"{qname} warmed", warm.table, cpu.table)
+        out[qname] = {"cold_measured_ms": measured_ms, "cold_degraded_ms": degraded_ms,
+                      "warmer_landed_ms_after_query": warmed_ms, "device_warm_ms": warm_ms,
+                      "blocks": blocks}
+        log(f"{phase} gate {qname}: {blocks} blocks; cold on the measured profile wall "
+            f"{measured_ms:.3f} ms, cold on the degraded link wall {degraded_ms:.3f} ms (every "
+            f"block on the host, answer == cpu, stages "
+            f"{ {k: v for k, v in degraded.stats['stages'].items() if k != 'hotset'} }), the "
+            f"warmer landed the last block {warmed_ms:.3f} ms after the query, then device-warm "
+            f"on the measured profile wall {warm_ms:.3f} ms")
+    return out
+
+
+def result_cache_runs(torch, p, device=None) -> dict:
+    """Phase 11 (b), on the phase 3 lake with a 64 MiB result cache: the
+    groupby query over LAKE_RANGE twice (a miss, then a hit whose table
+    equals the miss's); the same query without a range (it reaches the
+    staging window: no cache); then a new minute synced into the lake,
+    whose snapshot commit evicts the entry, so the next run is a miss that
+    counts the new rows. Returns the walls (ms)."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    from parseable_tpu_torch.query.partials import get_result_cache
+    from parseable_tpu_torch.query.session import QuerySession
+
+    on_card = device is None or torch.device(device).type == "cuda"
+    text = QUERIES["groupby"].format(stream=STREAM)
+
+    def timed(**span):
+        t = time.perf_counter()
+        res = QuerySession(p, engine="gpu", device=device).query(text, **span)
+        if on_card:
+            torch.cuda.synchronize()
+        return res, (time.perf_counter() - t) * 1e3
+
+    def rows(res) -> int:
+        return int(pc.sum(res.table["c"]).as_py())
+
+    p.options.query_result_cache_bytes = 64 << 20
+    try:
+        cache = get_result_cache(p.options)
+        miss, miss_ms = timed(**LAKE_RANGE)
+        hit, hit_ms = timed(**LAKE_RANGE)
+        check((miss.stats["stages"]["result_cache"], hit.stats["stages"]["result_cache"])
+              == ("miss", "hit"), f"result cache: {miss.stats['stages']} then {hit.stats['stages']}")
+        check(hit.table.equals(miss.table), "result cache: the hit's table differs from the miss's")
+        check("device_routes" not in hit.stats and hit.stats["rows_scanned"] == 0,
+              f"result cache: the hit scanned {hit.stats}")
+        check(rows(miss) == MINUTES * N_BLOCK, f"result cache: {rows(miss)} rows counted")
+        same_result("groupby result cache miss", miss.table,
+                    QuerySession(p, engine="cpu").query(text, **LAKE_RANGE).table)
+        inside, inside_ms = timed()
+        check(inside.stats["stages"]["result_cache"] is None,
+              f"result cache: a query reaching the staging window has {inside.stats['stages']}")
+        t = time.perf_counter()
+        stream = p.create_stream_if_not_exists(STREAM)
+        stream.write_parquet(make_minute(pa, np, np.random.default_rng(MINUTES), MINUTES, N_BLOCK),
+                             BASE + timedelta(minutes=MINUTES))
+        p.sync_all_streams()  # update_snapshot evicts the stream's entries
+        sync_ms = (time.perf_counter() - t) * 1e3
+        after, after_ms = timed(**LAKE_RANGE)
+        check(after.stats["stages"]["result_cache"] == "miss",
+              f"result cache: after the sync {after.stats['stages']}")
+        check(rows(after) == (MINUTES + 1) * N_BLOCK, f"result cache: {rows(after)} rows after sync")
+    finally:
+        p.options.query_result_cache_bytes = 0
+    walls = {"miss_ms": miss_ms, "hit_ms": hit_ms, "staging_window_ms": inside_ms,
+             "new_minute_sync_ms": sync_ms, "miss_after_sync_ms": after_ms}
+    log(f"phase 11 result cache groupby: miss wall {miss_ms:.3f} ms, hit wall {hit_ms:.3f} ms "
+        f"(hit table == miss table; hit stages {hit.stats['stages']}), inside the staging window (no cache) {inside_ms:.3f} ms, "
+        f"a new minute synced in {sync_ms:.3f} ms evicted the entry, next run a miss counting "
+        f"{rows(after)} rows in {after_ms:.3f} ms; cache hits {cache.hits} misses {cache.misses}")
+    return walls
 
 
 # ------------------------------------------------------------------ server
@@ -2544,7 +2733,8 @@ def boot_module(work: Path, acked: int) -> None:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     env = {**os.environ, "P_ADDR": f"127.0.0.1:{port}",
-           "P_STAGING_DIR": str(work / "staging"), "P_FS_DIR": str(work / "data")}
+           "P_STAGING_DIR": str(work / "staging"), "P_FS_DIR": str(work / "data"),
+           "P_QUERY_RESULT_CACHE_BYTES": "0"}
     env.pop("P_QUERY_ENGINE", None)
     t = time.perf_counter()
     proc = subprocess.Popen(
@@ -2615,6 +2805,7 @@ def drive_server(torch, G, seed: int, device=None) -> dict:
             opts.query_engine = "gpu"
             opts.local_sync_interval_secs = sync_secs
             opts.upload_interval_secs = sync_secs
+            opts.query_result_cache_bytes = 0
             return opts
 
         storage = StorageOptions(root=work / "data")
@@ -2806,6 +2997,18 @@ def main() -> int:
         phase_done("7 statistics")
         pressure_launches = drive_pressure(torch, p)
         phase_done("8 hot-set pressure")
+        # -- phase 11 on the phase 3 lake: a degraded link, then the result cache
+        counts = kernel_counters()
+        reset_launches(counts)
+        gate = gate_runs(torch, p, [
+            ("groupby", QUERIES["groupby"].format(stream=STREAM), same_result),
+            ("select_filter", SELECT_QUERIES["select_filter"][0].format(stream=STREAM),
+             lambda n, g, c: same_select(n, g, c, SELECT_QUERIES["select_filter"][1])),
+        ], "phase 11")
+        gate["result_cache"] = result_cache_runs(torch, p)
+        log(f"phase 11 launches: {launch_counts(counts)}")
+        log_residency(torch, "phase 11", True)
+        phase_done("11 gate and result cache")
     finally:
         if p is not None:
             p.shutdown()
@@ -2814,7 +3017,8 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
 
     # -- phase 10: high cardinality, on a lake of its own
-    hc_launches, k8_case, k3_hc, hc_calls = drive_highcard(torch, args.seed, timer)
+    hc_launches, k8_case, k3_hc, hc_calls, hc_gate = drive_highcard(torch, args.seed, timer)
+    gate.update(hc_gate)
     # K8 on topk_multicol's own accumulator from phase 4, beside hc_topk_path's
     k8_multicol = topk_case(torch, K, timer, *k8_main, "main path, phase 4")
     log(f"phase 10 topk_groups (topk_multicol) {json.dumps(k8_multicol)}")
@@ -2836,7 +3040,10 @@ def main() -> int:
     # shape)
     import threading
 
-    log(f"phase 5 threads alive: {[t.name for t in threading.enumerate()]}")
+    alive = [t.name for t in threading.enumerate()]
+    log(f"phase 5 threads alive: {alive}")
+    check("device-warmer" not in alive, "the device warmer outlived its phase")
+    log(f"phase 11 walls ms: {json.dumps(gate)}")
     report = []
     replaces = {
         "additive_groupby": "parseable_tpu/ops/pallas_groupby.py:53",

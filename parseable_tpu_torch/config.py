@@ -34,9 +34,10 @@ def _env_bool(name: str, default: bool) -> bool:
     return v.lower() in ("1", "true", "yes", "on")
 
 
-# Accessors for the budgets and the switch that the hot set and the
-# encoded-block cache read at call time rather than through `Options`
-# (P_TPU_HOT_BYTES, P_TPU_ENC_CACHE_BYTES, P_TPU_ENC_CACHE).
+# Accessors for the budgets and the switches that the hot set, the
+# encoded-block cache and the GPU executor read at call time rather than
+# through `Options` (P_TPU_HOT_BYTES, P_TPU_ENC_CACHE_BYTES, P_TPU_ENC_CACHE,
+# P_TPU_ADAPTIVE).
 def env_str(name: str, default: str | None = None) -> str | None:
     return _env(name, default)
 
@@ -109,6 +110,11 @@ class Options:
     )
     # scan tables coalesce into device blocks of at least this many rows
     device_block_rows: int = field(default_factory=lambda: _env_int("P_TPU_BLOCK_ROWS", 1 << 20))
+    # byte budget of the partial-aggregate result cache keyed on (stream,
+    # manifest-set fingerprint, plan fingerprint); 0 disables
+    query_result_cache_bytes: int = field(
+        default_factory=lambda: _env_int("P_QUERY_RESULT_CACHE_BYTES", 64 * 1024 * 1024)
+    )
 
     # --- ingest ---------------------------------------------------------------
     max_event_payload_bytes: int = field(

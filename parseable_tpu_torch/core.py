@@ -41,6 +41,7 @@ from parseable_tpu_torch.catalog import (
 from parseable_tpu_torch.config import Options, StorageOptions, generate_node_id
 from parseable_tpu_torch.event.format import LogSource, SchemaVersion
 from parseable_tpu_torch.metastore import MetastoreError, ObjectStoreMetastore
+from parseable_tpu_torch.query.partials import invalidate_result_cache
 from parseable_tpu_torch.storage import ObjectStoreFormat, rfc3339_now
 from parseable_tpu_torch.storage.enrichment import EnrichmentQueue
 from parseable_tpu_torch.storage.object_storage import LocalFS
@@ -390,3 +391,6 @@ class Parseable:
         if fmt.first_event_at is None and stream.metadata.first_event_at:
             fmt.first_event_at = stream.metadata.first_event_at
         self.metastore.put_stream_json(stream.name, fmt)
+        # the committed snapshot supersedes every cached aggregate interim of
+        # this stream (their manifest-set fingerprints are now stale)
+        invalidate_result_cache(stream.name)

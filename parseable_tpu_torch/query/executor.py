@@ -21,6 +21,7 @@ functions are later work and raise ExecError here.
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass
 from datetime import UTC, datetime, timedelta
 from typing import Any, Iterator
@@ -30,6 +31,7 @@ import pyarrow as pa
 import pyarrow.compute as pc
 
 from parseable_tpu_torch.ops.hll_sketch import estimate, merge_registers, registers_add
+from parseable_tpu_torch.ops.link import get_link
 from parseable_tpu_torch.query import partials as PT
 from parseable_tpu_torch.query import sql as S
 from parseable_tpu_torch.query.partials import (
@@ -859,6 +861,15 @@ class HashAggregator:
 class QueryExecutor:
     """Execute a LogicalPlan over an iterator of tables (CPU engine)."""
 
+    # set by the session when the query can use the result cache: receives
+    # the merged interim the moment the scan is fully reduced, before
+    # HAVING, projection, ORDER BY and LIMIT run. Every aggregate path of
+    # both engines ends in finalize_from_interim, so one hook covers them
+    interim_sink = None
+    # the caller's options, whose staging dir roots the process-wide link
+    # profile; None leaves it where it is (the GPU executor sets its own)
+    _staging_options = None
+
     def __init__(self, plan: LogicalPlan):
         self.plan = plan
 
@@ -866,10 +877,8 @@ class QueryExecutor:
 
     def _check_deadline(self) -> None:
         """Cooperative timeout, checked once per scan block."""
-        import time as _time
-
         dl = getattr(self.plan, "deadline", None)
-        if dl is not None and _time.monotonic() > dl:
+        if dl is not None and time.monotonic() > dl:
             raise QueryTimeout("query exceeded its timeout and was cancelled")
 
     def _memory_budget(self) -> int | None:
@@ -1039,9 +1048,14 @@ class QueryExecutor:
         if sel.group_by and PT.specs_partializable(agg.specs):
             # two-phase: per-block pyarrow partials + ONE vectorized merge, no
             # per-group Python, so a 1M-group query does not cliff
+            link = get_link(self._staging_options)
             parts: list[pa.Table] = []
             for table in tables:
                 self._check_deadline()
+                t0 = time.perf_counter()
+                # the host rate counts the block's rows before the bounds
+                # filter: the basis the GPU engine's gate prices blocks on
+                rows_scanned = table.num_rows
                 table = self._bounds_filter(table)
                 mask = self._where_mask(table)
                 if mask is not None:
@@ -1049,6 +1063,7 @@ class QueryExecutor:
                 pt = PT.partial_from_block(table, sel.group_by, agg.specs)
                 if pt is not None:
                     parts.append(pt)
+                link.record_cpu_agg(rows_scanned, time.perf_counter() - t0)
             if parts:
                 interim = PT.merge_partials(parts, agg.specs, len(sel.group_by))
                 return self.finalize_from_interim(interim, rewritten)
@@ -1082,6 +1097,8 @@ class QueryExecutor:
         """Post-aggregation: HAVING, projection over __g/__agg slots, ORDER
         BY/LIMIT. Shared by the sparse (dict) fold and the TPU engine's
         vectorized dense finalize."""
+        if self.interim_sink is not None:
+            self.interim_sink(interim)
         sel = self.plan.select
 
         # group exprs referenced post-agg resolve to the key columns.

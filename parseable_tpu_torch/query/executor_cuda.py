@@ -7,8 +7,20 @@ and the select path: `_execute_aggregate_tpu` (:1485), `_dense_interim`
 `_get_local_program` :2417, the partial helpers :2575-2758), the fold of
 `_get_program`/`fold_one` (:2762/:2852), `_flush_state` (:3159),
 `_transfer` (:3286), the block cache (`_encoded_block` :1416, the
-prefetcher :1304-1365) and `_execute_select_tpu` (:1213), all without the
-adaptive host/device gate and without the mesh. Per scanned block:
+prefetcher :1304-1365), `_execute_select_tpu` (:1213) and the adaptive
+host/device gate (`_adaptive_gate` :1361, `_warm_block` :1394), all without
+the mesh. Per scanned block:
+
+0. the gate prices a block of 65,536 rows or more that the hot set does
+   not hold: its copy (and, in local mode, its readback; in a select, its
+   one-byte-a-row mask) at the measured link rates against folding it on
+   the host at the measured host rate (`ops/link.py`). A block that would
+   be sooner on the host folds there (`cpu_adaptive`): into a partial
+   table where the aggregates allow, which joins the two-phase merge, else
+   into the host aggregator; the background warmer then ships it into the
+   hot set, so the next query runs device-warm. `P_TPU_ADAPTIVE=0` turns
+   the gate off. A query with count(distinct) or approx_distinct is never
+   routed;
 
 1. the block resolves through three tiers (`_encoded_block`): the device
    hot set (`ops/hotset.py`: the block's tensors stay on the card, no
@@ -57,9 +69,9 @@ scan on the host past `DENSE_G_MAX`, as in the JAX package.
 
 A plain SELECT with a WHERE runs K3a alone per block, reads the mask back
 at one byte a row and filters the rows on the host; projection, ORDER BY
-and LIMIT go through the CPU engine. On the card, sampled block copies
-feed the link profile (`ops/link.py`), which prices the hot set's
-evictions.
+and LIMIT go through the CPU engine. On the card, sampled block copies and
+every readback feed the link profile (`ops/link.py`), which prices the
+gate's routes and the hot set's evictions.
 
 Shapes outside this slice raise `UnsupportedOnDevice` and take the CPU
 engine, counted in `route_stats["cpu_fallback"]`: aggregates over
@@ -99,7 +111,7 @@ import pyarrow as pa
 import torch
 
 from parseable_tpu_torch import DEFAULT_TIMESTAMP_KEY
-from parseable_tpu_torch.config import Options
+from parseable_tpu_torch.config import Options, env_str
 from parseable_tpu_torch.ops import fold_cuda as F
 from parseable_tpu_torch.ops import groupby_cuda, stats_cuda, topk_cuda
 from parseable_tpu_torch.ops.fold_cuda import Program, UnsupportedOnDevice
@@ -107,14 +119,20 @@ from parseable_tpu_torch.ops.device import EncodedBatch, EncodedColumn, encode_t
 from parseable_tpu_torch.ops.enccache import get_enccache
 from parseable_tpu_torch.ops.hll_sketch import HLL_M, luts_for_dictionary
 from parseable_tpu_torch.ops.hotset import HotEntry, get_hotset
-from parseable_tpu_torch.ops.link import get_link
+from parseable_tpu_torch.ops.link import MIN_ROUTED_ROWS, get_link, warm_async
 from parseable_tpu_torch.ops.prefetch import ScanPrefetcher
 from parseable_tpu_torch.query import partials as PT
 from parseable_tpu_torch.query import sql as S
 from parseable_tpu_torch.query.executor import AggSpec, HashAggregator, QueryExecutor, _arr, evaluate
 from parseable_tpu_torch.query.planner import LogicalPlan, referenced_columns
 from parseable_tpu_torch.query.sketch import DEVICE_NB, QuantileSketch, hist_quantile
-from parseable_tpu_torch.query.stubs import SOURCE_ID_META, device_columns, hot_key, is_stub
+from parseable_tpu_torch.query.stubs import (
+    SOURCE_ID_META,
+    STUB_META,
+    device_columns,
+    hot_key,
+    is_stub,
+)
 from parseable_tpu_torch.utils.devicecheck import require_device
 from parseable_tpu_torch.utils.timeutil import parse_duration, parse_rfc3339, time_ticks
 
@@ -136,6 +154,13 @@ PCT_MAX_ELEMS = 1 << 24
 # byte alignment of each segment in the packed transfer payload, so every
 # segment can be viewed as its own dtype
 _ALIGN = 16
+# the gate routes a block to the host when shipping it costs this much more
+# than folding it there (hysteresis against estimate noise)
+_ROUTE_MARGIN = 1.15
+
+# blocks the adaptive gate routed to the host because the measured link
+# made shipping a losing trade
+ADAPTIVE_CPU_BLOCKS = [0]
 
 
 def _holds_time(col: EncodedColumn) -> bool:
@@ -922,6 +947,18 @@ def _strip_host_values(enc: EncodedBatch) -> None:
     enc.row_mask = np.empty(0, bool)
 
 
+_WARM_STREAMS: dict[torch.device, Any] = {}
+
+
+def _warm_stream(device: torch.device):
+    """The background warmer's CUDA stream (one per card, used only on the
+    warmer's thread)."""
+    stream = _WARM_STREAMS.get(device)
+    if stream is None:
+        stream = _WARM_STREAMS[device] = torch.cuda.Stream(device)
+    return stream
+
+
 _TORCH_DTYPES = {
     np.dtype(np.bool_): torch.bool,
     np.dtype(np.int8): torch.int8,
@@ -969,6 +1006,7 @@ class GpuQueryExecutor(QueryExecutor):
         self.route_stats: dict[str, int] = {
             "device_warm": 0,  # hot-set resident: no block bytes shipped
             "device_cold": 0,  # encoded (or read from the enccache) + shipped
+            "cpu_adaptive": 0,  # the link cost model routed the block to the host
             "cpu_fallback": 0,  # unsupported on device
             "device_local": 0,  # of the device blocks, those folded block-local
             "h2d_bytes": 0,  # block copies and the query's aux copies
@@ -1029,9 +1067,93 @@ class GpuQueryExecutor(QueryExecutor):
             self.route_stats[key] += n
 
     def _readback(self, x: torch.Tensor, dtype=np.float64) -> np.ndarray:
-        """Device -> host readback, priced into route_stats."""
-        self._count("d2h_bytes", x.numel() * x.element_size())
-        return x.cpu().numpy().astype(dtype)
+        """Device -> host readback, priced into route_stats at the tensor's
+        own element size. On the card the copy is timed into the link
+        profile's d2h EWMAs; the stream is drained first, so that kernel
+        time is never counted as d2h latency."""
+        wire = x.numel() * x.element_size()
+        self._count("d2h_bytes", wire)
+        if self.device.type != "cuda":
+            return x.cpu().numpy().astype(dtype)
+        torch.cuda.current_stream(self.device).synchronize()
+        t0 = time.perf_counter()
+        host = x.cpu()
+        get_link().record_d2h(wire, time.perf_counter() - t0)
+        return host.numpy().astype(dtype)
+
+    # ---------------------------------------------------------- adaptive gate
+
+    def _adaptive_gate(
+        self,
+        table: pa.Table,
+        needed: set[str] | None,
+        dict_cols: set[str],
+        link,
+        hotset_obj,
+        read_bytes: Callable[[int], int],
+        filter_workload: bool = False,
+    ) -> tuple[bool, tuple | None, int]:
+        """The routing decision: (route to the host, hot key or None, block
+        rows). Small blocks and blocks the hot set holds always take the
+        device; otherwise the estimated ship (+ readback) cost is priced
+        against the measured host rate (ops/link.py): the filter rate for a
+        select, the aggregation rate otherwise. Rows are the block's before
+        any bounds filter (a stub's from its metadata)."""
+        meta = table.schema.metadata or {}
+        src = meta.get(SOURCE_ID_META)
+        rows0 = int(meta[STUB_META]) if STUB_META in meta else table.num_rows
+        if rows0 < MIN_ROUTED_ROWS:
+            return False, None, rows0
+        key = hot_key(src, needed, dict_cols) if src is not None else None
+        if key is not None and hotset_obj.contains(key):
+            return False, key, rows0
+        ncols = len(needed) if needed is not None else 6
+        ship = link.ship_cost(rows0 * 4 * max(ncols, 1))
+        rb = read_bytes(rows0)
+        if rb:  # a readback of no bytes pays no d2h latency either
+            ship += link.read_cost(rb)
+        cpu = link.cpu_filter_cost(rows0) if filter_workload else link.cpu_cost(rows0)
+        return ship > cpu * _ROUTE_MARGIN, key, rows0
+
+    def _warm_block(
+        self, key: tuple, table: pa.Table, needed: set[str] | None, dict_cols: set[str]
+    ) -> None:
+        """Ship a host-routed block into the hot set behind the query, on
+        the warmer's thread. The closure touches no state of this executor
+        (the query has finished when it runs): it reads the encoded-block
+        cache or encodes the block (writing behind into the cache), ships
+        it on the warmer's own CUDA stream and puts a hot entry whose
+        `ready` event the next query's stream waits on (`_resident`)."""
+        device, options, loader = self.device, self._staging_options, self.source_loader
+        source = (table.schema.metadata or {})[SOURCE_ID_META]
+
+        def warm() -> None:
+            hotset = get_hotset()
+            if hotset.contains(key):
+                return
+            enccache = get_enccache(options)
+            enc = enccache.get(source, needed, dict_cols) if enccache is not None else None
+            if enc is None:
+                # (a routed stub was read through the loader for the host fold)
+                rows = loader(source) if is_stub(table) else table
+                enc = encode_table(rows, needed, dict_columns=dict_cols)
+                if enc is None:
+                    return
+                if enccache is not None:
+                    enccache.put_async(source, enc)
+            ready = None
+            if device.type == "cuda":
+                stream = _warm_stream(device)
+                with torch.cuda.stream(stream):
+                    dev, nbytes, _ = _ship_block(enc, device)
+                    ready = torch.cuda.Event()
+                    ready.record(stream)
+            else:
+                dev, nbytes, _ = _ship_block(enc, device)
+            _strip_host_values(enc)
+            hotset.put(key, HotEntry(dev=dev, meta=enc, nbytes=nbytes, ready=ready))
+
+        warm_async(key, warm)
 
     # ----------------------------------------------------------- block cache
 
@@ -1234,9 +1356,28 @@ class GpuQueryExecutor(QueryExecutor):
             needed.add(DEFAULT_TIMESTAMP_KEY)  # the JAX package's set, where the scan reads it
         needed = device_columns(needed, sel.where)
         compiler = PredicateCompiler()
+        adaptive = env_str("P_TPU_ADAPTIVE", "1") != "0"
+        link = get_link(self._staging_options)
+        hotset_obj = get_hotset()
 
         def filtered() -> Iterator[pa.Table]:
             for table in self._blocks(tables):
+                if adaptive:
+                    # the readback here is the mask, one byte a row
+                    route, k0, rows0 = self._adaptive_gate(
+                        table, needed, set(), link, hotset_obj, lambda r: r, filter_workload=True
+                    )
+                    if route:
+                        ADAPTIVE_CPU_BLOCKS[0] += 1
+                        self.route_stats["cpu_adaptive"] += 1
+                        t0 = time.perf_counter()
+                        t = self._materialize(table)
+                        out = t.filter(_arr(evaluate(sel.where, t), t))
+                        link.record_cpu_filter(rows0, time.perf_counter() - t0)
+                        if k0 is not None:
+                            self._warm_block(k0, table, needed, set())
+                        yield out
+                        continue
                 progs: list[Program] = []
 
                 def check(enc: EncodedBatch) -> None:
@@ -1373,8 +1514,51 @@ class GpuQueryExecutor(QueryExecutor):
             if pt is not None:
                 partials.append(pt)
 
+        # the adaptive gate: per non-resident block, the estimated ship (+
+        # local mode's readback) cost against the measured host rate
+        # (ops/link.py). A block that would be sooner on the host folds
+        # there, and the warmer ships it into the hot set behind the query
+        adaptive = env_str("P_TPU_ADAPTIVE", "1") != "0" and not dkeys
+        link = get_link(self._staging_options)
+        hotset_obj = get_hotset()
+        partializable = bool(sel.group_by) and PT.specs_partializable(specs)
+
+        def local_read(rows: int) -> int:
+            # a block-local fold reads back its block-sized accumulator
+            return min(rows, LOCAL_G_MAX) * lay.n_rows * 4
+
+        def cpu_block(table: pa.Table, rows_scanned: int) -> None:
+            """Fold one block on the host: into a partial table where the
+            specs allow (vectorized), else into the host aggregator. The
+            host rate is recorded on the block's rows before the bounds
+            filter (`rows_scanned`), the basis the gate prices on."""
+            t0 = time.perf_counter()
+            t = self._bounds_filter(self._materialize(table))
+            mask = self._where_mask(t)
+            if partializable:
+                keep(PT.partial_from_block(t if mask is None else t.filter(mask), sel.group_by,
+                                           specs))
+            else:
+                agg.update(t, mask)
+            link.record_cpu_agg(rows_scanned, time.perf_counter() - t0)
+
         for table in self._blocks(tables):
             self._check_deadline()
+            # the gate decides OUTSIDE the try below: its fallback handler
+            # folds the block on the host, and a block cpu_block has folded
+            # must never be folded a second time
+            if adaptive and not force_cpu_rest:
+                route, k0, rows0 = self._adaptive_gate(
+                    table, needed, dict_cols, link, hotset_obj,
+                    local_read if local_mode else (lambda r: 0),
+                )
+                if route:
+                    ADAPTIVE_CPU_BLOCKS[0] += 1
+                    self.route_stats["cpu_adaptive"] += 1
+                    cpu_block(table, rows0)
+                    if k0 is not None:
+                        self._warm_block(k0, table, needed, dict_cols)
+                    continue
             try:
                 if force_cpu_rest:
                     raise UnsupportedOnDevice("device state budget exceeded earlier in the scan")

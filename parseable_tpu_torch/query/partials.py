@@ -18,17 +18,24 @@ dictionary-typed in the interim table, so only the rows that survive LIMIT
 decode. Anything the fast path cannot express (combined code overflow,
 key types it cannot encode) takes the multi-column group_by.
 
-Not ported here: the session's partial-result cache and the cluster
-fan-out's `combine_partials` (later items of ROADMAP list 1).
+The session's partial-result cache (`PartialResultCache`, JAX :61-179)
+keeps merged interims keyed on (stream, manifest-set fingerprint, plan
+fingerprint). Not ported here: the cluster fan-out's `combine_partials`
+(a later item of ROADMAP list 1).
 """
 
 from __future__ import annotations
 
+import hashlib
+import threading
+from collections import OrderedDict
 from typing import Any
 
 import numpy as np
 import pyarrow as pa
 import pyarrow.compute as pc
+
+from parseable_tpu_torch.query import sql as S
 
 # aggregate functions expressible in partial format: stddev/var carry
 # (count, sum, sum-of-squares) columns; percentile/distinct need sketch or
@@ -46,6 +53,117 @@ def specs_partializable(specs) -> bool:
 
 class _FastPathUnavailable(Exception):
     pass
+
+
+# --------------------------------------------------------------------------
+# partial-aggregate result cache
+
+
+class PartialResultCache:
+    """LRU cache of *finalized partials* — the merged interim (__g/__agg)
+    table an aggregate produces after consuming its whole scan — keyed on
+    (stream, manifest-set fingerprint, plan fingerprint).
+
+    A repeated `GROUP BY` over an unchanged snapshot then skips the scan:
+    the session re-runs only HAVING, projection, ORDER BY and LIMIT over
+    the cached interim. The manifest-set fingerprint covers every (path,
+    size, rows) the scan would read, so any snapshot commit changes the
+    key; `update_snapshot` also evicts the stream's entries eagerly so
+    stale interims do not hold the byte budget. Arrow tables are
+    immutable, so entries are shared without copies. Thread-safe."""
+
+    def __init__(self, max_bytes: int):
+        self.max_bytes = max(1, max_bytes)
+        self._lock = threading.Lock()
+        self._entries: OrderedDict[tuple, pa.Table] = OrderedDict()  # guarded-by: self._lock
+        self._bytes = 0  # guarded-by: self._lock
+        self.hits = 0  # guarded-by: self._lock
+        self.misses = 0  # guarded-by: self._lock
+
+    def get(self, key: tuple) -> pa.Table | None:
+        with self._lock:
+            table = self._entries.get(key)
+            if table is None:
+                self.misses += 1
+            else:
+                self.hits += 1
+                self._entries.move_to_end(key)
+            return table
+
+    def put(self, key: tuple, table: pa.Table) -> None:
+        size = table.nbytes
+        if size > self.max_bytes:
+            return  # one oversized interim must not wipe the whole cache
+        with self._lock:
+            prev = self._entries.pop(key, None)
+            if prev is not None:
+                self._bytes -= prev.nbytes
+            self._entries[key] = table
+            self._bytes += size
+            while self._bytes > self.max_bytes and self._entries:
+                _, old = self._entries.popitem(last=False)
+                self._bytes -= old.nbytes
+
+    def invalidate_stream(self, stream: str) -> int:
+        """Evict every entry of `stream` (a snapshot commit)."""
+        with self._lock:
+            doomed = [k for k in self._entries if k[0] == stream]
+            for k in doomed:
+                self._bytes -= self._entries.pop(k).nbytes
+        return len(doomed)
+
+
+_RESULT_CACHE: PartialResultCache | None = None
+_RESULT_CACHE_LOCK = threading.Lock()
+
+
+def get_result_cache(options=None) -> PartialResultCache | None:
+    """Process-wide result cache sized by P_QUERY_RESULT_CACHE_BYTES (0
+    disables). Re-roots when the configured budget changes."""
+    global _RESULT_CACHE
+    budget = getattr(options, "query_result_cache_bytes", 64 * 1024 * 1024)
+    if budget <= 0:
+        return None
+    with _RESULT_CACHE_LOCK:
+        if _RESULT_CACHE is None or _RESULT_CACHE.max_bytes != budget:
+            _RESULT_CACHE = PartialResultCache(budget)
+        return _RESULT_CACHE
+
+
+def invalidate_result_cache(stream: str) -> int:
+    """Snapshot-commit hook (`core.update_snapshot`): drop the stream's
+    cached interims the moment the manifest set they were built from is
+    superseded."""
+    with _RESULT_CACHE_LOCK:
+        cache = _RESULT_CACHE
+    return cache.invalidate_stream(stream) if cache is not None else 0
+
+
+def manifest_fingerprint(files) -> str:
+    """Content fingerprint of a scan's manifest set: (path, size, rows) of
+    every file the pruned scan would read."""
+    h = hashlib.blake2b(digest_size=16)
+    for f in sorted(files, key=lambda f: f.file_path):
+        h.update(f"{f.file_path}|{f.file_size}|{f.num_rows}\n".encode())
+    return h.hexdigest()
+
+
+def plan_fingerprint(lp, engine: str) -> str:
+    """Fingerprint of what the interim depends on: the whole statement
+    (WHERE, GROUP BY, aggregates), the effective time bounds, the columns
+    read, and the engine (device partial sums are f32 per block: close to
+    the CPU engine's f64, not equal)."""
+    cols = sorted(lp.needed_columns) if lp.needed_columns is not None else ["*"]
+    text = "\x1f".join(
+        [
+            S.format_statement(lp.select),
+            str(lp.time_bounds.low),
+            str(lp.time_bounds.high),
+            ",".join(cols),
+            engine,
+        ]
+    )
+    return hashlib.blake2b(text.encode(), digest_size=16).hexdigest()
 
 
 def _encode_key(arr: pa.ChunkedArray | pa.Array) -> tuple[np.ndarray, pa.Array]:

@@ -12,6 +12,12 @@ trimmed to single-stream SELECTs. Engines:
   device hot set after the query.
 - "cpu": the pyarrow `QueryExecutor`.
 
+Both engines share the partial-result cache (`query/partials.py`,
+`P_QUERY_RESULT_CACHE_BYTES`): an aggregate whose time range ends before
+the staging window, over an unchanged manifest set, is answered from its
+cached interim (`stats.stages.result_cache`: "hit", "miss", or None where
+the query cannot use the cache).
+
 EXPLAIN, CTEs, UNION, joins and subqueries are later slices and raise
 QueryError.
 """
@@ -31,6 +37,11 @@ from parseable_tpu_torch.core import Parseable
 from parseable_tpu_torch.ops.hotset import get_hotset
 from parseable_tpu_torch.query import sql as S
 from parseable_tpu_torch.query.executor import QueryExecutor
+from parseable_tpu_torch.query.partials import (
+    get_result_cache,
+    manifest_fingerprint,
+    plan_fingerprint,
+)
 from parseable_tpu_torch.query.planner import LogicalPlan, TimeBounds, plan as build_plan
 from parseable_tpu_torch.query.provider import StreamScan
 from parseable_tpu_torch.utils.arrowutil import record_batches_to_json
@@ -157,6 +168,32 @@ class QuerySession:
         return lp
 
     def _execute(self, lp: LogicalPlan, scan: StreamScan) -> tuple[pa.Table, dict]:
+        # partial-aggregate result cache: a repeated aggregate over an
+        # unchanged manifest set skips the scan, and only HAVING,
+        # projection, ORDER BY and LIMIT re-run over the cached interim. A
+        # query whose range reaches the staging window cannot use it
+        # (staging rows are invisible to the manifest fingerprint). The key
+        # is taken before the GPU engine drops the timestamp column below
+        result_cache = get_result_cache(self.p.options)
+        result_key = None
+        if result_cache is not None and lp.is_aggregate and not scan._within_staging_window():
+            result_key = (
+                lp.stream,
+                manifest_fingerprint(scan.manifest_files()),
+                plan_fingerprint(lp, self.engine),
+            )
+            interim = result_cache.get(result_key)
+            if interim is not None:
+                t0 = _time.perf_counter()
+                ex = QueryExecutor(lp)
+                _agg, rewritten, _names = ex.build_aggregator()
+                table = ex.finalize_from_interim(interim, rewritten)
+                stages = {
+                    "scan_ms": 0.0,
+                    "execute_ms": round((_time.perf_counter() - t0) * 1000, 3),
+                    "result_cache": "hit",
+                }
+                return table, {"stages": stages}
         if self.engine == "gpu":
             from parseable_tpu_torch.query.executor_cuda import GpuQueryExecutor
 
@@ -179,6 +216,16 @@ class QuerySession:
             executor.prefetch_scan = scan
         else:
             executor = QueryExecutor(lp)
+        if result_key is not None:
+            # store the merged interim the moment the engine produces it,
+            # but never a partial one (scan_errors: files were dropped)
+            def sink(interim: pa.Table) -> None:
+                with scan._stats_lock:
+                    errors = scan.stats.scan_errors
+                if errors == 0:
+                    result_cache.put(result_key, interim)
+
+            executor.interim_sink = sink
         timer = _TimedIter(scan.tables())
         t0 = _time.perf_counter()
         table = executor.execute(timer)
@@ -186,6 +233,7 @@ class QuerySession:
         stages = {
             "scan_ms": round(timer.seconds * 1000, 3),
             "execute_ms": round(max(exec_ms - timer.seconds * 1000, 0.0), 3),
+            "result_cache": "miss" if result_key is not None else None,
         }
         stats: dict = {"stages": stages}
         routes = getattr(executor, "route_stats", None)

@@ -48,6 +48,7 @@ from parseable_tpu_torch.core import Parseable, StreamError, StreamNotFound, val
 from parseable_tpu_torch.event.format import LogSource
 from parseable_tpu_torch.event.json_format import EventError
 from parseable_tpu_torch.ops.enccache import shutdown_enccache
+from parseable_tpu_torch.ops.link import shutdown_warmer
 from parseable_tpu_torch.query.session import QueryError, QuerySession
 from parseable_tpu_torch.query.sql import SqlError
 from parseable_tpu_torch.rbac import Action, RbacStore, bootstrap_admin
@@ -140,10 +141,13 @@ class ServerState:
         self.workers.shutdown(wait=True)
         self.query_workers.shutdown(wait=True)
         self.p.shutdown()
-        # the encoded-block cache's write-behind thread and the native
-        # parse pool (it drains queued shard jobs before joining, and
-        # restarts lazily if anything parses after the stop): every thread
-        # the server starts has a deterministic stop
+        # the device warmer (queued warms run first; one may write behind
+        # into the encoded-block cache, so it stops before that cache's
+        # writer), the encoded-block cache's write-behind thread and the
+        # native parse pool (it drains queued shard jobs before joining,
+        # and restarts lazily if anything parses after the stop): every
+        # thread the server starts has a deterministic stop
+        shutdown_warmer()
         shutdown_enccache()
         native.shutdown_parse_pool()
 

@@ -958,6 +958,10 @@ def test_cuda_local_mode_matches_plain_path(cuda, sql, pairs, monkeypatch):
     ]
     get_hotset().clear()
     monkeypatch.setenv("P_TPU_ENC_CACHE", "0")
+    # the gate off: both runs fold every block on their device (a profile
+    # that learned a fast host rate, or the default one pricing local mode's
+    # readback, would route these 65,536-row blocks to the host)
+    monkeypatch.setenv("P_TPU_ADAPTIVE", "0")
     monkeypatch.setattr(X, "DENSE_G_MAX", 1 << 10)
     monkeypatch.setattr(X, "LOCAL_G_MAX", 1 << 20)
     before = F.LAUNCHES["mask_ids"]
