@@ -49,6 +49,14 @@ profile, must be device-warm; then, with a 64 MiB result cache, groupby
 over an API time range must miss, then hit with the same table, a query
 reaching the staging window must not use the cache, and a new minute
 synced into the lake must evict the entry.
+Phase 12 (after phase 11 on the phase 3 lake, and on phase 10's lake before
+it goes) pins virtual device meshes on the card (4 shards, and 2 x 2 data x
+groups; the real cards too where there are several): six of the lake's
+queries disk-warm and device-warm and hc_minute_path device-warm must
+equal their one-device answers and the CPU engine's, every block folded
+row-sharded; then K10 (`csrc/mesh.cu`, the mesh's combine) is held bit for
+bit against its plain version on the partials the phase gave it and on a
+hazard set, and timed.
 Phase 5 checks and times each kernel on the inputs the main path gave it
 (one block per shape, recorded in phases 4 and 7; K3 on each query's own
 block) and kernels A and B also on uniform inputs of the same shape; K5-K7
@@ -668,8 +676,8 @@ def k3_programs(F, np, rng) -> list:
     and operand row: each leaf alone under each comparison (NaN, -0.0 and
     +-inf literals among them), the connectives over NULLs, then the keys
     (dictionary remaps with their 2^30 sentinel, time bins with a wrapping
-    shift and a negative offset, a block's own codes and pair codes) and
-    every kind of operand row."""
+    shift and a negative offset, a block's own codes and pair codes, a mesh
+    window's shift and mask) and every kind of operand row."""
     luts = {"c8": rng.random(256) < 0.5, "c16": rng.random(1024) < 0.3,
             "c32": rng.random(8192) < 0.5}
     out = []
@@ -756,9 +764,23 @@ def k3_programs(F, np, rng) -> list:
         program(f"null {neg}", lambda p, s, neg=neg: p.is_null(s["f"], neg))
         program(f"const {neg}", lambda p, s, neg=neg: p.const(neg))
         program(f"const NULL {neg}", lambda p, s, neg=neg: p.const(neg, known=False))
+    def windowed(lo, n):  # a groups-sharded mesh's window over dictionary x time ids
+        remap = rng.integers(0, 70, 256).astype(np.int32)
+
+        def build(p, s):
+            connectives(p, s)
+            p.key_dict(s["c8"], remap, 64, 1)
+            p.key_time(s["t"], 0, 60_000, 2, 8, 64)
+            p.key_window(lo, n)
+            p.row(F.ROW_MASK)
+            p.row(F.ROW_MASKED, s["f"])
+        return build
+
     program("connectives", connectives)
     program("NULL connectives", nulls)
     program("own codes", own_codes)
+    for lo, n in ((0, 128), (256, 128), (384, 256)):
+        program(f"window {lo} {n}", windowed(lo, n))
     program("keys and rows", keys_and_rows)  # last: its verdicts are mixed
     return out
 
@@ -1141,7 +1163,7 @@ KERNEL_SYMBOLS = {
     "additive_groupby": "additive", "minmax_groupby": "minmax",
     "distinct_fold": "distinct_", "pct_histogram": "pct_hist_",
     "centered_m2": "m2_", "mask_ids": "k3_mask_ids", "stack_operands": "k3_stack_operands",
-    "topk_groups": "k8_",
+    "topk_groups": "k8_", "mesh_combine": "mesh_combine",
 }
 
 
@@ -1303,9 +1325,14 @@ def state_runs(torch, p, qname: str, text: str, phase: str, device, rel=None,
     log(f"{phase} {qname} cpu: {cpu.table.num_rows} rows out, {cpu.stats['rows_scanned']} "
         f"scanned in {dt:.3f} s = {cpu.stats['rows_scanned'] / dt:.6g} rows/s, "
         f"stages {cpu.stats['stages']}")
+    from parseable_tpu_torch.parallel.mesh import pinned_mesh
+
     for res in out:
         routes = res.stats["device_routes"]
         check(routes["cpu_fallback"] == 0, f"{qname}: cpu_fallback {routes}")
+        # no P_TPU_MESH on one card: no mesh forms (phase 12 pins its own)
+        check(pinned_mesh() is not None or routes["device_mesh"] == 0,
+              f"{qname}: a mesh formed unasked {routes}")
         # the card's measured link and host rates keep every block on it
         check(routes["cpu_adaptive"] == 0, f"{qname}: cpu_adaptive {routes}")
         check(res.stats["scan_errors"] == 0, f"{qname}: scan errors")
@@ -1462,10 +1489,11 @@ def kernel_counters() -> tuple:
     all of them, so every count it reports was measured in its own run."""
     from parseable_tpu_torch.ops import fold_cuda as F
     from parseable_tpu_torch.ops import groupby_cuda as G
+    from parseable_tpu_torch.ops import mesh_cuda as MC
     from parseable_tpu_torch.ops import stats_cuda as SC
     from parseable_tpu_torch.ops import topk_cuda as K
 
-    return G.LAUNCHES, F.LAUNCHES, SC.LAUNCHES, K.LAUNCHES
+    return G.LAUNCHES, F.LAUNCHES, SC.LAUNCHES, K.LAUNCHES, MC.LAUNCHES
 
 
 def launch_counts(counts: tuple) -> dict:
@@ -2128,8 +2156,8 @@ def topk_case(torch, K, timer, acc, kind: str, val: int, pac: int, sq: int, desc
     return res
 
 
-def drive_highcard(torch, seed: int, timer, device=None) -> tuple[dict, dict | None, "K3Recorder",
-                                                                 dict, dict]:
+def drive_highcard(torch, seed: int, timer, device=None, then=None
+                   ) -> tuple[dict, dict | None, "K3Recorder", dict, dict]:
     """Phase 10: high cardinality. A lake of bench.py's "highcard" profile
     (8 one-minute files of 2^20 rows, a stream of its own) and HC_QUERIES on
     the "gpu" engine (on `device`, default the card) cold, disk-warm and
@@ -2139,7 +2167,8 @@ def drive_highcard(torch, seed: int, timer, device=None) -> tuple[dict, dict | N
     its plain version on hc_topk_path's own accumulator and on
     `topk_hazard_acc`, bit for bit, then timed on that accumulator
     (`topk_case`). Then phase 11 (a) on this lake: hc_minute_path under a
-    degraded link (`gate_runs`). Returns the phase's launch counts, K8's
+    degraded link (`gate_runs`), and `then(p)` (phase 12's part on this
+    lake) before the lake goes. Returns the phase's launch counts, K8's
     timing (None off the card), the queries' K3 calls, each query's first
     call of A, B and K7 at each shape, inputs cloned, with its call count,
     and phase 11's walls on this lake."""
@@ -2249,6 +2278,8 @@ def drive_highcard(torch, seed: int, timer, device=None) -> tuple[dict, dict | N
                                      lambda n, g, c: same_table(n, g, c, keys))], "phase 11", device)
         log(f"phase 11 (highcard lake) launches {launch_counts(counts)}, "
             f"{time.perf_counter() - t:.3f} s")
+        if then is not None:
+            then(p)
     finally:
         K.topk_groups = real_topk
         G.additive_groupby, G.minmax_groupby = real["additive_groupby"], real["minmax_groupby"]
@@ -2274,6 +2305,221 @@ def drive_highcard(torch, seed: int, timer, device=None) -> tuple[dict, dict | N
     res = topk_case(torch, K, timer, acc, kind, val, pac, sq, desc, k, "main path")
     log(f"phase 10 topk_groups {json.dumps(res)}")
     return launches, res, k3, calls, gate
+
+
+# ------------------------------------------------------ phase 12: the mesh
+
+# the query lake's queries that phase 12 runs under a mesh, and their
+# answers' tolerances against the one-device run and the CPU engine
+MESH_QUERIES = ("groupby", "minmax", "topk_multicol", "stats_status", "stats_minute",
+                "select_filter")
+MESH_STATES = ("disk-warm", "device-warm")
+
+
+def mesh_queries() -> list:
+    """MESH_QUERIES as `mesh_runs` takes them."""
+    runs = []
+    for q in MESH_QUERIES:
+        if q in SELECT_QUERIES:
+            sql, key = SELECT_QUERIES[q]
+            runs.append((q, sql.format(stream=STREAM),
+                         lambda n, g, c, key=key: same_select(n, g, c, key), (key,)))
+        elif q in STATS_QUERIES:
+            runs.append((q, STATS_QUERIES[q].format(stream=STREAM),
+                         lambda n, g, c: same_result(n, g, c, STATS_REL), None))
+        else:
+            runs.append((q, QUERIES[q].format(stream=STREAM), same_result, None))
+    return runs
+
+
+def mesh_layouts(torch, device=None) -> list:
+    """Phase 12's meshes: a virtual mesh of 4 shards on the first card (on
+    `device`, when one is given) and a virtual 2 x 2 (data x groups), then,
+    where the machine has several cards, the same over the real cards."""
+    from parseable_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
+
+    dev = torch.device("cuda", 0) if device is None else torch.device(device)
+    out = [("4 virtual", make_mesh(4, devices=[dev] * 4)),
+           ("2x2 virtual", make_mesh_2d(2, 2, [dev] * 4))]
+    n = torch.cuda.device_count() if dev.type == "cuda" else 1
+    if n > 1:
+        real = 1 << (min(n, 4).bit_length() - 1)
+        out.append((f"{real} cards", make_mesh(real)))
+        if n >= 4:
+            out.append(("2x2 cards", make_mesh_2d(2, 2)))
+    return out
+
+
+class K10Recorder:
+    """Records K10's first call at each shape (its stacked partials, cloned,
+    and its row ops) and counts its calls, while the executor runs."""
+
+    def __init__(self, MC):
+        self.MC = MC
+        self.calls: dict[tuple, list] = {}
+
+    def __enter__(self):
+        self.real = self.MC.mesh_combine
+
+        def rec(parts, desc):
+            seen = self.calls.setdefault(tuple(parts.shape), [None, 0])
+            if seen[0] is None:
+                seen[0] = (parts.clone(), list(desc))
+            seen[1] += 1
+            return self.real(parts, desc)
+
+        self.MC.mesh_combine = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.MC.mesh_combine = self.real
+
+
+def mesh_runs(torch, p, runs: list, phase: str, states: tuple = MESH_STATES,
+              layouts: tuple | None = None, device=None) -> None:
+    """Phase 12: each of `runs` ((name, SQL, compare, select: a select's
+    `state_runs` argument, else None)) first on one device
+    (device-warm), then under each of `mesh_layouts` through `state_runs`
+    (which logs the walls and holds the CPU engine's answer), each answer
+    also held against the one-device answer; every mesh run folds its
+    blocks row-sharded (`device_mesh`), none unsharded, none on the host.
+    `layouts` keeps the meshes whose names start with one of its words."""
+    from parseable_tpu_torch.parallel.mesh import pin_mesh
+    from parseable_tpu_torch.query.session import QuerySession
+
+    for qname, text, compare, select in runs:
+        one = QuerySession(p, engine="gpu", device=device).query(text)
+        one = QuerySession(p, engine="gpu", device=device).query(text)  # device-warm
+        r1 = one.stats["device_routes"]
+        check(r1["device_mesh"] == 0 and r1["cpu_fallback"] == 0, f"{qname} one device: {r1}")
+        for mname, mesh in mesh_layouts(torch, device):
+            if layouts is not None and not mname.startswith(layouts):
+                continue
+            with pin_mesh(mesh):
+                out = state_runs(torch, p, qname, text, f"{phase} {mname}", device, states=states,
+                                 compare=None if select else compare, select=select)
+            for res in out:
+                r = res.stats["device_routes"]
+                check(r["device_mesh"] == r["device_warm"] + r["device_cold"] > 0
+                      and r["mesh_unsharded"] == 0, f"{qname} {mname}: routes {r}")
+                compare(f"{qname} {mname} vs one device", res.table, one.table)
+        log(f"{phase} {qname}: every mesh's answer == one device's == cpu, device_mesh > 0")
+
+
+def k10_hazards(np, rng, d: int, w: int):
+    """K10's hazard set (tests/test_torch_mesh.py (b)): [D, 7, W] partials
+    of one accumulator layout (count | n | s | M2 | min | max | a flat SUM
+    row), shard 0 empty where D > 1, the last group empty on every shard,
+    NaN, +-inf, +-3.4e38 and +-0.0 in the MIN and MAX rows."""
+    n = rng.integers(0, 100, (d, w)).astype(np.float32)
+    if d > 1:
+        n[0] = 0
+    n[:, -1] = 0
+    s = (rng.standard_normal((d, w)) * 10 + 5).astype(np.float32) * n
+    m2 = (rng.random((d, w)) * 50).astype(np.float32) * (n > 1)
+    mn = np.where(n > 0, rng.standard_normal((d, w)).astype(np.float32), np.float32(np.inf))
+    mx = np.where(n > 0, rng.standard_normal((d, w)).astype(np.float32) + 3, np.float32(-np.inf))
+    pool = np.array([np.nan, np.inf, -np.inf, 3.4e38, -3.4e38, -0.0, 0.0], np.float32)
+    for row in (mn, mx):
+        pick = rng.random((d, w)) < 0.05
+        row[pick] = rng.choice(pool, int(pick.sum()))
+    flat = rng.integers(0, 5, (d, w)).astype(np.float32)
+    return np.stack([n, n, s, m2, mn, mx, flat], axis=1)
+
+
+K10_HAZARD_DESC = ((0, 0, 0), (0, 0, 0), (0, 0, 0), (3, 1, 2), (1, 0, 0), (2, 0, 0), (0, 0, 0))
+
+
+def k10_exact(torch, MC, parts, desc, what: str) -> float:
+    """K10 against its plain version on the card: bit for bit, a NaN
+    matching any NaN. Returns the largest absolute difference over the
+    finite entries (0.0)."""
+    got = MC.mesh_combine(parts, desc)
+    want = MC.mesh_combine_plain(parts, desc)
+    torch.cuda.synchronize()
+    nan = torch.isnan(want)
+    check(torch.equal(torch.isnan(got), nan)
+          and torch.equal(got.view(torch.int32)[~nan], want.view(torch.int32)[~nan]),
+          f"K10 not exact: {what}")
+    fin = torch.isfinite(want)
+    return float((got - want)[fin].abs().max().item()) if bool(fin.any()) else 0.0
+
+
+def library_combine(torch, MC, desc):
+    """One PyTorch expression per op over the same stack, the yardstick of
+    K10 (used nowhere in the port): torch.sum / amin / amax over dim 0 of
+    the SUM / MIN / MAX rows, and Chan's recentre of the M2 rows in torch
+    ops."""
+    rows = {op: [r for r, (o, _, _) in enumerate(desc) if o == op] for op in range(4)}
+    m2 = [(r, n, s) for r, (o, n, s) in enumerate(desc) if o == MC.M2]
+    idx = {op: torch.tensor(v, device="cuda") for op, v in rows.items() if v}
+    if m2:
+        r_, n_, s_ = (torch.tensor(c, device="cuda") for c in zip(*m2))
+
+    def run(parts):
+        out = torch.empty(parts.shape[1:], device=parts.device)
+        for op, fn in ((MC.SUM, torch.sum), (MC.MIN, torch.amin), (MC.MAX, torch.amax)):
+            if op in idx:
+                out[idx[op]] = fn(parts[:, idx[op]], dim=0)
+        if m2:
+            n, s = parts[:, n_], parts[:, s_]
+            mean_t = s.sum(0) / n.sum(0).clamp_min(1.0)
+            dev = s / n.clamp_min(1.0) - mean_t
+            out[r_] = torch.where(n > 0, parts[:, r_] + n * dev * dev, 0.0).sum(0)
+        return out
+
+    return run
+
+
+def k10_case(torch, MC, timer, parts, desc, inputs: str) -> dict:
+    """K10 vs its plain version, bit for bit, then timed L2-cold and L2-warm
+    beside its plain version and `library_combine`. Bound: the D partials
+    read once and the result written once, (D + 1) R W 4 bytes."""
+    d, r, w = parts.shape
+    res = {"shape": f"D={d} R={r} W={w}", "inputs": inputs, "regime": "a thread a column"}
+    res["max_abs_err"] = k10_exact(torch, MC, parts, desc, inputs)
+    nbytes = (d + 1) * r * w * 4
+    copies = n_copies(nbytes)
+    sets = [parts] + [parts.clone() for _ in range(copies - 1)]
+    lib = library_combine(torch, MC, desc)
+    fns = {
+        "ms": lambda k: MC.mesh_combine(sets[k], desc),
+        "plain_ms": lambda k: MC.mesh_combine_plain(sets[k], desc),
+        "library_ms": lambda k: lib(sets[k]),
+    }
+    res.update(timed(timer, fns, copies))
+    res["profiler_ms"], res["profiler_kernels"] = profiled_ms(torch, fns["ms"],
+                                                              (KERNEL_SYMBOLS["mesh_combine"],))
+    res["sum_ms"] = stream_sum_ms(torch, timer, nbytes)
+    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, d * r * w)
+    check(abs(res["bound_ms"] - MC.bound_ms(d, r, w)) <= 1e-9, "K10's bound")
+    res["copies"] = copies
+    return res
+
+
+def k10_checks(torch, MC, timer, seed: int, recorded: dict) -> tuple[dict, int]:
+    """Phase 12 on the card: K10 bit for bit against its plain version on
+    every shape the phase gave it (its first call's own partials) and on
+    the hazard set at D = 1, 2, 4 and 8; then timed at the phase's heaviest
+    shape. Returns the timing and the cases checked."""
+    import numpy as np
+
+    n = 0
+    for shape, (first, calls) in sorted(recorded.items()):
+        parts, desc = first
+        k10_exact(torch, MC, parts, desc, f"phase 12's call at {shape} ({calls} calls)")
+        n += 1
+    rng = np.random.default_rng(seed)
+    for d in (1, 2, 4, 8):
+        for w in (1, 4099, 1 << 17):
+            parts = torch.from_numpy(k10_hazards(np, rng, d, w)).cuda()
+            k10_exact(torch, MC, parts, K10_HAZARD_DESC, f"hazard set D={d} W={w}")
+            n += 1
+    shape = max(recorded, key=lambda s: s[0] * s[1] * s[2])
+    parts, desc = recorded[shape][0]
+    res = k10_case(torch, MC, timer, parts, desc, "main path, phase 12")
+    res["main_path_calls"] = recorded[shape][1]
+    return res, n
 
 
 # ------------------------------------------------- gate and result cache
@@ -2892,6 +3138,7 @@ def main() -> int:
         from parseable_tpu_torch.ops import cuda_lib
         from parseable_tpu_torch.ops import fold_cuda as F
         from parseable_tpu_torch.ops import groupby_cuda as G
+        from parseable_tpu_torch.ops import mesh_cuda as MC
         from parseable_tpu_torch.ops import stats_cuda as SC
         from parseable_tpu_torch.ops import topk_cuda as K
         from parseable_tpu_torch.ops.enccache import shutdown_enccache
@@ -2931,7 +3178,7 @@ def main() -> int:
 
     with ThreadPoolExecutor(max_workers=1) as pool:
         native_built = pool.submit(load_native)
-        built = cuda_lib.build_all([G.LIBRARY, SC.LIBRARY, F.LIBRARY, K.LIBRARY])
+        built = cuda_lib.build_all([G.LIBRARY, SC.LIBRARY, F.LIBRARY, K.LIBRARY, MC.LIBRARY])
         native_s = native_built.result()
     log(f"phase 1 build: kernels built and loaded in {built:.3f} s, the native ingest "
         f"library in {native_s:.3f} s ({native.library_path().name})")
@@ -3009,6 +3256,16 @@ def main() -> int:
         log(f"phase 11 launches: {launch_counts(counts)}")
         log_residency(torch, "phase 11", True)
         phase_done("11 gate and result cache")
+        # -- phase 12 on the phase 3 lake: the same queries under a mesh
+        check(MC.LAUNCHES["mesh_combine"] == 0, "K10 launched before phase 12")
+        reset_launches(counts)
+        with K10Recorder(MC) as k10_rec:
+            mesh_runs(torch, p, mesh_queries(), "phase 12")
+        mesh_launches = launch_counts(counts)
+        check(mesh_launches["mesh_combine"] > 0, "K10 never launched in phase 12")
+        log(f"phase 12 (query lake) launches: {mesh_launches}")
+        log_residency(torch, "phase 12", True)
+        phase_done("12 mesh, query lake")
     finally:
         if p is not None:
             p.shutdown()
@@ -3017,8 +3274,24 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
 
     # -- phase 10: high cardinality, on a lake of its own
-    hc_launches, k8_case, k3_hc, hc_calls, hc_gate = drive_highcard(torch, args.seed, timer)
+    hc_mesh: dict = {}
+
+    def hc_mesh_runs(hc_lake) -> None:
+        # phase 12 on the high-cardinality lake: hc_minute_path (local
+        # mode) under 4 shards, device-warm
+        sql, keys, _ = HC_QUERIES["hc_minute_path"]
+        reset_launches(counts)
+        with K10Recorder(MC) as rec:
+            mesh_runs(torch, hc_lake, [("hc_minute_path", sql.format(stream=HC_STREAM),
+                                        lambda n, g, c: same_table(n, g, c, keys), None)],
+                      "phase 12", states=("device-warm",), layouts=("4 ", "2 cards", "4 cards"))
+        hc_mesh.update(launches=launch_counts(counts), calls=rec.calls)
+        log(f"phase 12 (highcard lake) launches: {hc_mesh['launches']}")
+
+    hc_launches, k8_case, k3_hc, hc_calls, hc_gate = drive_highcard(torch, args.seed, timer,
+                                                                    then=hc_mesh_runs)
     gate.update(hc_gate)
+    check(hc_launches["mesh_combine"] == 0, f"K10 launched in phase 10: {hc_launches}")
     # K8 on topk_multicol's own accumulator from phase 4, beside hc_topk_path's
     k8_multicol = topk_case(torch, K, timer, *k8_main, "main path, phase 4")
     log(f"phase 10 topk_groups (topk_multicol) {json.dumps(k8_multicol)}")
@@ -3030,6 +3303,19 @@ def main() -> int:
     check((k8_launches or 0) <= 1, f"K8 launches a call on the main path: {K8_PROFILED}")
     log(f"phase 10 K8 launches a call (profiled queries): {k8_launches} {json.dumps(K8_PROFILED)}")
     phase_done("10 high cardinality")
+
+    # -- phase 12 on the card: K10 bit for bit on every shape the mesh runs
+    # gave it and on the hazard set, then timed at the heaviest
+    k10_calls = dict(k10_rec.calls)
+    for shape, seen in hc_mesh["calls"].items():
+        k10_calls.setdefault(shape, seen)
+    k10, k10_cases = k10_checks(torch, MC, timer, args.seed, k10_calls)
+    log(f"phase 12 K10 exact: {k10_cases} cases ({len(k10_calls)} of the phase's shapes, "
+        f"{sum(c for _, c in k10_calls.values())} calls)")
+    log(f"phase 12 mesh_combine {json.dumps(k10)}")
+    for name in mesh_launches:
+        mesh_launches[name] += hc_mesh["launches"][name]
+    phase_done("12 mesh, high cardinality and K10")
 
     # -- phase 6: the HTTP server, ingest and queries, on the card
     server_launches = drive_server(torch, G, args.seed)
@@ -3060,7 +3346,7 @@ def main() -> int:
         **dict.fromkeys(K3_KERNELS, "parseable_tpu_torch/csrc/fold.cu"),
     }
     by_phase = {"lake": launches, "stats": stats_launches, "server": server_launches,
-                "pressure": pressure_launches, "highcard": hc_launches}
+                "pressure": pressure_launches, "highcard": hc_launches, "mesh": mesh_launches}
 
     def phase_launches(name: str) -> dict:
         # each phase's own count of the kernel's launches
@@ -3160,6 +3446,21 @@ def main() -> int:
             "launches_per_call": k8_launches,
             "topk_multicol": {k: k8_multicol[k] for k in ("shape", "regime", "ms", "plain_ms",
                                                            "bound_ms", "library_ms")},
+        }
+    )
+    # K10: its launches and time from phase 12, the mesh's path
+    report.append(
+        {
+            "name": "mesh_combine",
+            "route": "cuda",
+            "source": "parseable_tpu_torch/csrc/mesh.cu",
+            "replaces": "parseable_tpu/parallel/mesh.py:91",
+            "launches": mesh_launches["mesh_combine"],
+            **phase_launches("mesh_combine"),
+            **{k: k10[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "shape", "regime", "ms_l2_warm", "profiler_ms",
+                                   "sum_ms")},
+            "inputs": "main path (phase 12), L2-cold",
         }
     )
     phase_done("5 kernel times")

@@ -110,6 +110,10 @@ class Options:
     )
     # scan tables coalesce into device blocks of at least this many rows
     device_block_rows: int = field(default_factory=lambda: _env_int("P_TPU_BLOCK_ROWS", 1 << 20))
+    # the device mesh of the GPU engine (`executor_cuda.resolve_mesh`): ""
+    # shards over every visible card when there are several, "off" never,
+    # "data:N" / "N" over N cards, "NxM" a data x groups layout
+    mesh_shape: str = field(default_factory=lambda: _env("P_TPU_MESH", ""))
     # byte budget of the partial-aggregate result cache keyed on (stream,
     # manifest-set fingerprint, plan fingerprint); 0 disables
     query_result_cache_bytes: int = field(

@@ -23,7 +23,10 @@
 //   wrapping int32 arithmetic with a floor (not C's truncating) division,
 //   or (KEY_CODE) the slot's own code with an upper clamp, no remap: the
 //   block-local fold of a high-cardinality GROUP BY (JAX _get_local_program
-//   .fold, executor_tpu.py:2473, ids at :2493-2500).
+//   .fold, executor_tpu.py:2473, ids at :2493-2500). KEY_WINDOW, after the
+//   keys, moves the id into a groups-sharded mesh's window [lo, lo + n): the
+//   verdict ANDs 0 <= id - lo < n, the id becomes clamp(id - lo, 0, n - 1)
+//   (JAX fold_one's group-sharded layout, executor_tpu.py:2899-2906).
 // k3_stack_operands (K3b): kernel A's row matrix [mask | valid&mask rows |
 //   masked values] (f32), kernel B's value rows (f32) and validity rows
 //   (u8), and the liveness rows of K5-K7, in the order of executor_cuda's
@@ -85,7 +88,7 @@ constexpr unsigned kAll = (1u << kRun) - 1u;
 // opcodes (fold_cuda.py): leaves push one (value, known) pair
 enum Op {
   kLut = 1, kCmpF32, kCmpI32, kInF32, kNotInF32, kIsNull, kNotNull, kConst,
-  kAnd, kOr, kNot, kKeyDict, kKeyTime, kCmpF64, kInF64, kNotInF64, kKeyCode,
+  kAnd, kOr, kNot, kKeyDict, kKeyTime, kCmpF64, kInF64, kNotInF64, kKeyCode, kKeyWindow,
 };
 enum RowOp { kRowMask = 1, kRowLive, kRowMasked, kRowValue };
 enum RowFlag { kNanAware = 1, kBoolOut = 2 };
@@ -429,6 +432,20 @@ __global__ void __launch_bounds__(kThreads)
             y = y < 0 ? 0 : (y > top ? top : y);
             id[i] = (int)((unsigned)id[i] + (unsigned)y * (unsigned)in[6]);
           }
+          continue;
+        }
+        case kKeyWindow: {
+          if (ids == nullptr) continue;
+          const int lo = in[2], width = in[3];
+          unsigned inside = 0;
+#pragma unroll
+          for (int i = 0; i < kRun; ++i) {
+            const int local = wrap_add(id[i], -lo);
+            inside |= (unsigned)(local >= 0 && local < width) << i;
+            id[i] = local < 0 ? 0 : (local >= width ? width - 1 : local);
+          }
+          top_v &= inside;
+          top_k = (top_k | ~inside) & kAll;
           continue;
         }
         default: continue;

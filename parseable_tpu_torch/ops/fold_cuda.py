@@ -33,8 +33,11 @@ Both interpret one PROGRAM, a small int32 array the host builds per block
   adds clamp(floor((ts + shift) / bin) + k_off, 0, cap - 1) * stride, in
   wrapping int32 arithmetic; KEY_CODE (a: capacity, b: stride) adds
   min(code, cap - 1) * stride of the slot's own codes, with no remap (the
-  block-local fold of high-cardinality GROUP BYs). The verdict is the value
-  left on the stack;
+  block-local fold of high-cardinality GROUP BYs); KEY_WINDOW (a: lo, b:
+  n), after the keys, moves the row's id into one device's window of a
+  groups-sharded mesh: id - lo, with the verdict ANDed with 0 <= id - lo < n
+  and the id clamped into [0, n). The verdict is the value left on the
+  stack;
 - operand rows, 4 words each: [row op, slot, flags, output row]: MASK,
   LIVE (mask & valid, & not NaN with NAN_AWARE), MASKED (x where live, else
   0), VALUE (x); BOOL_OUT writes the bool matrix, else the f32 one. They
@@ -87,7 +90,8 @@ MAX_OPS = 128  # csrc kMaxOps
 MAX_SLOTS = 16  # csrc kMaxSlots
 
 (LUT, CMP_F32, CMP_I32, IN_F32, NOT_IN_F32, IS_NULL, NOT_NULL, CONST,
- AND, OR, NOT, KEY_DICT, KEY_TIME, CMP_F64, IN_F64, NOT_IN_F64, KEY_CODE) = range(1, 18)
+ AND, OR, NOT, KEY_DICT, KEY_TIME, CMP_F64, IN_F64, NOT_IN_F64, KEY_CODE,
+ KEY_WINDOW) = range(1, 19)
 ROW_MASK, ROW_LIVE, ROW_MASKED, ROW_VALUE = range(1, 5)
 NAN_AWARE, BOOL_OUT = 1, 2
 CMP = {"=": 0, "!=": 1, "<": 2, "<=": 3, ">": 4, ">=": 5}
@@ -218,6 +222,12 @@ class Program:
     def key_code(self, slot: int, cap: int, stride: int) -> None:
         self._emit(KEY_CODE, slot, cap, stride)
 
+    def key_window(self, lo: int, n: int) -> None:
+        """After the keys: the ids' window [lo, lo + n) of a groups-sharded
+        mesh (`window_at` re-points a packed program at another window)."""
+        require(self._depth == 1, "a window follows the verdict")
+        self._emit(KEY_WINDOW, 0, lo, n)
+
     # operand rows (K3b)
     def row(self, op: int, slot: int = 0, *, nan_aware: bool = False, bool_out: bool = False) -> int:
         """Append an operand row; returns its index in its matrix."""
@@ -248,6 +258,17 @@ class Program:
         words[HEADER_WORDS : HEADER_WORDS + len(body)] = body
         words[data_off:] = np.frombuffer(bytes(self._data), dtype=np.int32)
         return words
+
+
+def window_at(words: np.ndarray, lo: int) -> np.ndarray:
+    """A copy of packed program `words` whose KEY_WINDOW starts at `lo`."""
+    out = words.copy()
+    for k in range(int(words[1])):
+        at = HEADER_WORDS + k * INSTR_WORDS
+        if out[at] == KEY_WINDOW:
+            out[at + 2] = lo
+            return out
+    raise KernelError("the program has no KEY_WINDOW")
 
 
 # ------------------------------------------------------------ plain versions
@@ -341,6 +362,14 @@ def mask_ids_plain(
             x = _wrap32(slots[slot][0].to(torch.int64) + a)
             binned = _wrap32(torch.div(x, b, rounding_mode="floor") + c)
             ids += torch.clamp(binned, 0, d - 1) * e
+        elif op == KEY_WINDOW:
+            if not with_ids:
+                continue
+            local = _wrap32(_wrap32(ids) - a)
+            inside = (local >= 0) & (local < b)
+            v, k = stack.pop()
+            stack.append((v & inside, k | ~inside))
+            ids = torch.clamp(local, 0, b - 1)
         else:
             raise KernelError(f"unknown K3 opcode {op}")
     mask = stack[-1][0].clone()

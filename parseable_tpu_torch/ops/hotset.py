@@ -6,10 +6,15 @@ queries over the same data run with no host encode and no host -> device
 copy of the block: only the query's small LUTs and remaps cross.
 
 Entries are keyed by the scan's source id (`path|size|rows`) plus the
-column-set signature (`query/stubs.py` `hot_key`). `HotEntry.dev` holds the
-block's torch tensors (on the CPU when the executor runs with
-`device="cpu"`), `meta` the EncodedBatch with its host arrays stripped
-(dictionaries, vmin/vmax, flags and the time origin stay).
+column-set signature (`query/stubs.py` `hot_key`; no mesh in it, as in
+the JAX package). `HotEntry.dev` holds the block's torch tensors (on the
+CPU when the executor runs with `device="cpu"`), `meta` the EncodedBatch
+with its host arrays stripped (dictionaries, vmin/vmax, flags and the time
+origin stay). A block row-sharded over a mesh of several devices holds, in
+`shards`, per mesh position its row shard's tensors on that position's
+device, and its `placement` names the mesh; `nbytes` is the sum of its
+copies. The executor takes an entry whose layout its mesh does not use as
+a miss, and replaces it.
 
 Eviction (policy "cost", the process-wide set's) is cost-aware. Each entry
 carries a GDSF-style score
@@ -69,8 +74,20 @@ class HotEntry:
     nbytes: int
     # CUDA event recorded after the copy when the block was shipped on a
     # side stream (the prefetcher): a consumer's stream waits on it before
-    # any kernel reads the block
+    # any kernel reads the block; for a sharded block, (device, event) per
+    # device
     ready: Any = None
+    # a block row-sharded over a mesh of several devices: per mesh position
+    # its shard's tensors (`dev` is then empty), and the mesh's placement
+    shards: list[dict[str, Any]] | None = None
+    placement: tuple = ()
+
+    def tensors(self) -> list:
+        """Every tensor of the entry, each once."""
+        seen: dict[int, Any] = {id(t): t for t in self.dev.values()}
+        for shard in self.shards or ():
+            seen.update((id(t), t) for t in shard.values())
+        return list(seen.values())
 
 
 class _Slot:

@@ -9,7 +9,8 @@ copy on the critical path. This module overlaps that cost with compute:
 when the executor starts on block *i*, one background thread loads blocks
 i+1..i+depth from the encoded-block disk cache and ships them into the
 device hot set; on the card it copies on a CUDA stream of its own
-(`executor_cuda._prefetch_ship`).
+(`executor_cuda._prefetch_ship`), and under a mesh of several cards each
+card's row shards on a side stream of that card.
 
 Bounding: `depth` (1, the JAX package's default) caps both the lookahead
 and the shipped-but-unconsumed window, so prefetch cargo can never hold

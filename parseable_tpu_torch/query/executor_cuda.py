@@ -7,9 +7,10 @@ and the select path: `_execute_aggregate_tpu` (:1485), `_dense_interim`
 `_get_local_program` :2417, the partial helpers :2575-2758), the fold of
 `_get_program`/`fold_one` (:2762/:2852), `_flush_state` (:3159),
 `_transfer` (:3286), the block cache (`_encoded_block` :1416, the
-prefetcher :1304-1365), `_execute_select_tpu` (:1213) and the adaptive
-host/device gate (`_adaptive_gate` :1361, `_warm_block` :1394), all without
-the mesh. Per scanned block:
+prefetcher :1304-1365), `_execute_select_tpu` (:1213), the adaptive
+host/device gate (`_adaptive_gate` :1361, `_warm_block` :1394) and the
+device mesh (`resolve_mesh` :1052, the mesh branches of the transfer, the
+folds and the select; `parallel/mesh.py`). Per scanned block:
 
 0. the gate prices a block of 65,536 rows or more that the hot set does
    not hold: its copy (and, in local mode, its readback; in a select, its
@@ -73,6 +74,16 @@ and LIMIT go through the CPU engine. On the card, sampled block copies and
 every readback feed the link profile (`ops/link.py`), which prices the
 gate's routes and the hot set's evictions.
 
+Under a device mesh (`resolve_mesh`: `P_TPU_MESH`, or a pinned one) a
+block's rows shard over the mesh's data axis, one copy a card (on a virtual
+mesh, one device named several times, the shards are views of one copy);
+each shard runs step 4's kernels on its rows into a partial of its own, the
+partials are copied to the mesh's first device and K10
+(`ops/mesh_cuda.py`) combines them there before the fold into the
+accumulator. On the 2D layout each groups column owns a window of the
+group space, masked by K3a's KEY_WINDOW, its accumulator on the column's
+first device. The local fold and the select's mask run per shard too.
+
 Shapes outside this slice raise `UnsupportedOnDevice` and take the CPU
 engine, counted in `route_stats["cpu_fallback"]`: aggregates over
 expressions, distinct state past 2^24 (2^27 for HLL) entries, histograms
@@ -100,7 +111,7 @@ import logging
 import math
 import threading
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass
 from dataclasses import field as dc_field
 from datetime import UTC, datetime
@@ -113,7 +124,7 @@ import torch
 from parseable_tpu_torch import DEFAULT_TIMESTAMP_KEY
 from parseable_tpu_torch.config import Options, env_str
 from parseable_tpu_torch.ops import fold_cuda as F
-from parseable_tpu_torch.ops import groupby_cuda, stats_cuda, topk_cuda
+from parseable_tpu_torch.ops import groupby_cuda, mesh_cuda, stats_cuda, topk_cuda
 from parseable_tpu_torch.ops.fold_cuda import Program, UnsupportedOnDevice
 from parseable_tpu_torch.ops.device import EncodedBatch, EncodedColumn, encode_table, f64_name
 from parseable_tpu_torch.ops.enccache import get_enccache
@@ -121,6 +132,7 @@ from parseable_tpu_torch.ops.hll_sketch import HLL_M, luts_for_dictionary
 from parseable_tpu_torch.ops.hotset import HotEntry, get_hotset
 from parseable_tpu_torch.ops.link import MIN_ROUTED_ROWS, get_link, warm_async
 from parseable_tpu_torch.ops.prefetch import ScanPrefetcher
+from parseable_tpu_torch.parallel.mesh import Mesh, combine, make_mesh, make_mesh_2d, pinned_mesh
 from parseable_tpu_torch.query import partials as PT
 from parseable_tpu_torch.query import sql as S
 from parseable_tpu_torch.query.executor import AggSpec, HashAggregator, QueryExecutor, _arr, evaluate
@@ -161,6 +173,105 @@ _ROUTE_MARGIN = 1.15
 # blocks the adaptive gate routed to the host because the measured link
 # made shipping a losing trade
 ADAPTIVE_CPU_BLOCKS = [0]
+
+# blocks folded row-sharded over a device mesh, and of those, over a groups
+# axis too (the JAX package counts the mesh programs it builds under these
+# names; the port builds no programs, so it counts the blocks that ran so)
+MESH_PROGRAMS_BUILT = [0]
+GROUP_SHARDED_PROGRAMS_BUILT = [0]
+
+
+# ------------------------------------------------------------------- mesh
+# Distributed aggregation over a mesh of CUDA devices (`parallel/mesh.py`):
+# a block's rows shard over the `data` axis, each device folds its shard
+# with the same kernels, and K10 (`ops/mesh_cuda.py`) combines the partials
+# on the mesh's first device (JAX executor_tpu.py:1052-1124).
+
+_MESH_CACHE: dict[tuple, Mesh | None] = {}
+
+
+def resolve_mesh(options: Options | None = None, device: torch.device | str | None = None
+                 ) -> Mesh | None:
+    """The device mesh of a GPU executor on `device`, or None (one device).
+
+    A mesh pinned with `parallel.mesh.pin_mesh` wins. Otherwise
+    `P_TPU_MESH` (`Options.mesh_shape`): "off" disables; "data:N" / "N" pins
+    a 1D data axis; "NxM" (e.g. "4x2") builds the 2D (data x groups)
+    layout, where the group space shards too; empty auto-shards a 1D data
+    axis over every visible card when there are several. Axis sizes clamp
+    to powers of two, so that they divide the power-of-two row blocks and
+    group capacities. Too few cards or a malformed "NxM" warn and give no
+    mesh. The count is `torch.cuda.device_count()`; a CPU executor sees one
+    device. Unlike the JAX package, an error while resolving raises: it
+    never quietly runs on one device."""
+    pinned = pinned_mesh()
+    if pinned is not None:
+        return pinned
+    shape = (options.mesh_shape if options is not None else "").strip().lower()
+    kind = torch.device(device if device is not None else "cuda").type
+    key = (shape, kind)
+    if key in _MESH_CACHE:
+        return _MESH_CACHE[key]
+    mesh = None
+    if shape != "off":
+        n_avail = torch.cuda.device_count() if kind == "cuda" else 1
+        parts = shape.split("x", 1) if "x" in shape else None
+        if parts is not None and all(p.isdigit() and p for p in parts):
+            n_data, n_groups = (int(v) for v in parts)
+            pow2 = lambda n: 1 << (n.bit_length() - 1) if n >= 1 else 1  # noqa: E731
+            cd, cg = pow2(n_data), pow2(n_groups)
+            if (cd, cg) != (n_data, n_groups):
+                logger.warning("P_TPU_MESH=%s clamped to %dx%d (axes must be powers of two)",
+                               shape, cd, cg)
+            n_data, n_groups = cd, cg
+            if n_data * n_groups <= n_avail:
+                mesh = make_mesh(n_data) if n_groups == 1 else make_mesh_2d(n_data, n_groups)
+            else:
+                logger.warning("P_TPU_MESH=%s needs %d devices, have %d; one device",
+                               shape, n_data * n_groups, n_avail)
+        elif parts is not None:
+            logger.warning("P_TPU_MESH=%r is malformed (want e.g. '4x2'); one device", shape)
+        else:
+            want = None
+            if shape.startswith("data:"):
+                want = int(shape.split(":", 1)[1])
+            elif shape.isdigit():
+                want = int(shape)
+            elif n_avail > 1:
+                want = n_avail
+            if want and want > 1:
+                n = min(want, n_avail)
+                n = 1 << (n.bit_length() - 1)  # largest pow2 <= n
+                if n > 1:
+                    mesh = make_mesh(n)
+    _MESH_CACHE[key] = mesh
+    return mesh
+
+
+def _mesh_group_shards(mesh: Mesh | None) -> int:
+    """Size of the `groups` axis (1 on 1D meshes)."""
+    return mesh.shape.get("groups", 1) if mesh is not None else 1
+
+
+def _windows(x: torch.Tensor | list, m: int) -> list:
+    """A groups-sharded accumulator's M windows: the tensors of a list
+    (one on each column's first device), or M views of one tensor along its
+    last axis (a virtual mesh's, on one device)."""
+    if isinstance(x, list):
+        return x
+    w = x.shape[-1] // m
+    return [x[..., g * w : (g + 1) * w] for g in range(m)]
+
+
+def _acc_desc(o: "OperandRows") -> list[tuple[int, int, int]]:
+    """K10's op per accumulator row (AccLayout order): count, per-agg
+    counts and sums add; each M2 row recentres with its n and sum rows;
+    mins and maxs."""
+    a0 = o.n_a
+    desc = [(mesh_cuda.SUM, 0, 0)] * a0
+    desc += [(mesh_cuda.M2, 1 + o.n_sum + q, 1 + o.n_all + o.n_sum + q) for q in range(o.n_sq)]
+    desc += [(mesh_cuda.MIN, 0, 0)] * o.n_mink + [(mesh_cuda.MAX, 0, 0)] * o.n_maxk
+    return desc
 
 
 def _holds_time(col: EncodedColumn) -> bool:
@@ -910,14 +1021,10 @@ _SAMPLE_BYTES = 1 << 20
 _BIG_COPIES = itertools.count(1)
 
 
-def _ship_block(enc: EncodedBatch, device: torch.device) -> tuple[dict, int, bool]:
-    """Ship one encoded block (what the hot set keeps): column values,
-    validity where a column has nulls, and the padding mask. Null-free
-    columns ship no validity: the executor attaches its shared `ones` mask
-    per query. On the card, the first and every 8th block copy of 1 MiB or
-    more is timed to completion and fed to the link profile (the JAX
-    package's sampled sync, K4). Returns (tensors by name, bytes shipped,
-    whether this copy was a sample)."""
+def _block_parts(enc: EncodedBatch) -> list[tuple[str, np.ndarray]]:
+    """A block's arrays as it ships: column values, validity where a
+    column has nulls, and the padding mask. Null-free columns ship no
+    validity (a K3 slot without one reads as all valid)."""
     parts: list[tuple[str, np.ndarray]] = []
     for name, col in enc.columns.items():
         parts.append((name, col.values))
@@ -927,12 +1034,80 @@ def _ship_block(enc: EncodedBatch, device: torch.device) -> tuple[dict, int, boo
         # the padding mask lives with the block: the host copy is stripped
         # when the block enters the hot set
         parts.append(("__rowmask", enc.row_mask))
-    sample = False
-    if device.type == "cuda" and sum(a.nbytes for _, a in parts) >= _SAMPLE_BYTES:
-        n = next(_BIG_COPIES)
-        sample = n == 1 or n % 8 == 0
+    return parts
+
+
+def _is_sample(device: torch.device, parts: list[tuple[str, np.ndarray]]) -> bool:
+    """On the card, the first and every 8th block copy of 1 MiB or more is
+    timed to completion and fed to the link profile (the JAX package's
+    sampled sync, K4)."""
+    if device.type != "cuda" or sum(a.nbytes for _, a in parts) < _SAMPLE_BYTES:
+        return False
+    n = next(_BIG_COPIES)
+    return n == 1 or n % 8 == 0
+
+
+def _ship_block(enc: EncodedBatch, device: torch.device) -> tuple[dict, int, bool]:
+    """Ship one encoded block (what the hot set keeps) to `device` in one
+    copy. Returns (tensors by name, bytes shipped, whether this copy was a
+    link sample)."""
+    parts = _block_parts(enc)
+    sample = _is_sample(device, parts)
     dev, nbytes = _copy(parts, device, sample)
     return dev, nbytes, sample
+
+
+def _sharded_over(mesh: Mesh | None, rows: int) -> Mesh | None:
+    """The mesh a block of `rows` ships row-sharded over, one copy a card:
+    None without a mesh, on a virtual mesh (one device: the block ships
+    whole and its shards are views), and where the rows do not split over
+    the data axis."""
+    if mesh is None or mesh.one_device or rows % mesh.n_data:
+        return None
+    return mesh
+
+
+def _held_rows(arr: np.ndarray, held: list[int], rows: int, n_shards: int) -> np.ndarray:
+    """The rows of row shards `held` (of `n_shards` of `rows` each), in
+    order: the array itself where they are all of it."""
+    if held == list(range(n_shards)):
+        return arr
+    return np.concatenate([arr[s * rows : (s + 1) * rows] for s in held])
+
+
+def _ship_sharded(
+    enc: EncodedBatch, mesh: Mesh, side: Callable[[torch.device], Any] | None = None
+) -> tuple[list[dict], int, bool, list]:
+    """Ship a block row-sharded over a mesh of several devices (JAX
+    `_transfer`'s mesh branch, :3286-3330): per device ONE pinned copy of
+    the rows of the shards its positions hold. Returns (per mesh position
+    its shard's tensors, views into its device's payload; bytes shipped;
+    whether the first device's copy was a link sample; with `side`, which
+    gives a device's side stream, (device, event) recorded after each
+    copy)."""
+    parts = _block_parts(enc)
+    rows = enc.block_rows // mesh.n_data
+    payloads: dict[torch.device, tuple[list[int], dict]] = {}
+    nbytes, sample, ready = 0, False, []
+    for i, (device, held) in enumerate(mesh.held().items()):
+        sub = [(name, _held_rows(arr, held, rows, mesh.n_data)) for name, arr in parts]
+        stream = side(device) if side is not None and device.type == "cuda" else None
+        with torch.cuda.stream(stream) if stream is not None else nullcontext():
+            timed = i == 0 and _is_sample(device, sub)
+            tensors, n = _copy(sub, device, timed)
+            if stream is not None:
+                ev = torch.cuda.Event()
+                ev.record(stream)
+                ready.append((device, ev))
+        sample |= timed
+        nbytes += n
+        payloads[device] = (held, tensors)
+    shards = []
+    for p, device in enumerate(mesh.devices):
+        held, tensors = payloads[device]
+        k = held.index(mesh.data_index(p))
+        shards.append({name: t[k * rows : (k + 1) * rows] for name, t in tensors.items()})
+    return shards, nbytes, sample, ready
 
 
 def _strip_host_values(enc: EncodedBatch) -> None:
@@ -1001,6 +1176,13 @@ class GpuQueryExecutor(QueryExecutor):
         # stay where they are (a pathless profile, no re-rooted cache)
         self._staging_options = options
         self.device = require_device(device)
+        # the device mesh (None: one device); the accumulators live on its
+        # first device, where K10 combines the shards' partials
+        self.mesh = resolve_mesh(self.options, self.device)
+        if self.mesh is not None:
+            if self.mesh.devices[0].type != self.device.type:
+                raise ValueError(f"a {self.device.type} executor on a mesh of {self.mesh}")
+            self.device = self.mesh.devices[0]
         # per-query route observability: how every scanned block was
         # dispatched, plus the transfer bytes each direction cost
         self.route_stats: dict[str, int] = {
@@ -1009,6 +1191,8 @@ class GpuQueryExecutor(QueryExecutor):
             "cpu_adaptive": 0,  # the link cost model routed the block to the host
             "cpu_fallback": 0,  # unsupported on device
             "device_local": 0,  # of the device blocks, those folded block-local
+            "device_mesh": 0,  # of the device blocks, those folded row-sharded over the mesh
+            "mesh_unsharded": 0,  # blocks a mesh was asked for whose rows do not split over it
             "h2d_bytes": 0,  # block copies and the query's aux copies
             "h2d_aux_bytes": 0,  # of those, the LUT and remap copies
             "d2h_bytes": 0,
@@ -1030,7 +1214,7 @@ class GpuQueryExecutor(QueryExecutor):
         # list; closed in execute()'s finally on every exit path
         self._prefetcher: ScanPrefetcher | None = None
         self._prefetch_tried = False
-        self._side_stream = None  # the prefetch worker's CUDA stream
+        self._side_streams: dict[torch.device, Any] = {}  # the prefetch worker's, a card each
         self._sample_aux = False  # the last block copy was a link sample
         if self.device.type == "cuda" and options is not None:
             get_link(options)  # persist what this process measures
@@ -1066,16 +1250,20 @@ class GpuQueryExecutor(QueryExecutor):
         with self._stats_lock:
             self.route_stats[key] += n
 
-    def _readback(self, x: torch.Tensor, dtype=np.float64) -> np.ndarray:
+    def _readback(self, x: torch.Tensor | list, dtype=np.float64) -> np.ndarray:
         """Device -> host readback, priced into route_stats at the tensor's
         own element size. On the card the copy is timed into the link
         profile's d2h EWMAs; the stream is drained first, so that kernel
-        time is never counted as d2h latency."""
+        time is never counted as d2h latency. A list (the windows of a
+        groups-sharded accumulator, one on each card) reads back window by
+        window and concatenates on the host."""
+        if isinstance(x, list):
+            return np.concatenate([self._readback(w, dtype) for w in x], axis=-1)
         wire = x.numel() * x.element_size()
         self._count("d2h_bytes", wire)
-        if self.device.type != "cuda":
+        if x.device.type != "cuda":
             return x.cpu().numpy().astype(dtype)
-        torch.cuda.current_stream(self.device).synchronize()
+        torch.cuda.current_stream(x.device).synchronize()
         t0 = time.perf_counter()
         host = x.cpu()
         get_link().record_d2h(wire, time.perf_counter() - t0)
@@ -1125,6 +1313,7 @@ class GpuQueryExecutor(QueryExecutor):
         it on the warmer's own CUDA stream and puts a hot entry whose
         `ready` event the next query's stream waits on (`_resident`)."""
         device, options, loader = self.device, self._staging_options, self.source_loader
+        mesh_of = self.mesh
         source = (table.schema.metadata or {})[SOURCE_ID_META]
 
         def warm() -> None:
@@ -1141,6 +1330,13 @@ class GpuQueryExecutor(QueryExecutor):
                     return
                 if enccache is not None:
                     enccache.put_async(source, enc)
+            mesh = _sharded_over(mesh_of, enc.block_rows)
+            if mesh is not None:
+                shards, nbytes, _, ready = _ship_sharded(enc, mesh, _warm_stream)
+                _strip_host_values(enc)
+                hotset.put(key, HotEntry(dev={}, meta=enc, nbytes=nbytes, ready=ready or None,
+                                         shards=shards, placement=mesh.placement))
+                return
             ready = None
             if device.type == "cuda":
                 stream = _warm_stream(device)
@@ -1203,22 +1399,37 @@ class GpuQueryExecutor(QueryExecutor):
         )
         if est > hotset.budget:
             return None  # could never be admitted; don't ship it
-        ready = None
-        if self.device.type == "cuda":
-            if self._side_stream is None:
-                self._side_stream = torch.cuda.Stream(self.device)
-            with torch.cuda.stream(self._side_stream):
-                dev, nbytes, _ = _ship_block(enc, self.device)
-                ready = torch.cuda.Event()
-                ready.record(self._side_stream)
+        mesh = _sharded_over(self.mesh, enc.block_rows)
+        if mesh is not None:
+            # each shard on a side stream of its own card
+            shards, nbytes, _, ready = _ship_sharded(enc, mesh, self._side_stream)
+            entry = HotEntry(dev={}, meta=enc, nbytes=nbytes, ready=ready or None, shards=shards,
+                             placement=mesh.placement)
         else:
-            dev, nbytes, _ = _ship_block(enc, self.device)
+            ready = None
+            if self.device.type == "cuda":
+                stream = self._side_stream(self.device)
+                with torch.cuda.stream(stream):
+                    dev, nbytes, _ = _ship_block(enc, self.device)
+                    ready = torch.cuda.Event()
+                    ready.record(stream)
+            else:
+                dev, nbytes, _ = _ship_block(enc, self.device)
+            entry = HotEntry(dev=dev, meta=enc, nbytes=nbytes, ready=ready)
         self._count("h2d_bytes", nbytes)
         _strip_host_values(enc)
-        hotset.put(key, HotEntry(dev=dev, meta=enc, nbytes=nbytes, ready=ready))
+        hotset.put(key, entry)
         # admission control may have refused the put: only report a
         # completed ship when the entry is actually resident
         return key if hotset.contains(key) else None
+
+    def _side_stream(self, device: torch.device):
+        """The prefetch worker's CUDA stream on `device` (used only on the
+        worker's thread)."""
+        stream = self._side_streams.get(device)
+        if stream is None:
+            stream = self._side_streams[device] = torch.cuda.Stream(device)
+        return stream
 
     def _close_prefetcher(self) -> None:
         pf, self._prefetcher = self._prefetcher, None
@@ -1237,18 +1448,63 @@ class GpuQueryExecutor(QueryExecutor):
             raise UnsupportedOnDevice("stub block without a source loader")
         return self.source_loader(source)
 
-    def _resident(self, entry: HotEntry) -> dict:
-        """A hot entry's tensors, ready for this query's stream: a block the
-        prefetcher copied on its side stream is waited for, and its memory
-        is marked in use by this stream, so that an eviction during the
-        query cannot hand it to another allocation under a running
-        kernel."""
+    def _resident(self, entry: HotEntry) -> dict | list:
+        """A hot entry's tensors, ready for this query's streams: a block
+        the prefetcher copied on a side stream is waited for, and its memory
+        is marked in use by the stream of its card, so that an eviction
+        during the query cannot hand it to another allocation under a
+        running kernel. A sharded entry gives its per-position shards."""
         if entry.ready is not None:
-            stream = torch.cuda.current_stream(self.device)
-            stream.wait_event(entry.ready)
-            for t in entry.dev.values():
-                t.record_stream(stream)
-        return entry.dev
+            if entry.shards is None:
+                torch.cuda.current_stream(self.device).wait_event(entry.ready)
+            else:
+                for device, ev in entry.ready:
+                    torch.cuda.current_stream(device).wait_event(ev)
+            for t in entry.tensors():
+                t.record_stream(torch.cuda.current_stream(t.device))
+        return entry.dev if entry.shards is None else entry.shards
+
+    def _fold_mesh_for(self, rows: int) -> Mesh | None:
+        """The mesh a device block of `rows` folds over, counted: a block
+        whose rows do not split over the data axis folds on the executor's
+        device, as in the JAX package (:3302-3303), and counts as
+        `mesh_unsharded`."""
+        mesh = self.mesh
+        if mesh is None:
+            return None
+        if rows % mesh.n_data:
+            self._count("mesh_unsharded", 1)
+            return None
+        self._count("device_mesh", 1)
+        MESH_PROGRAMS_BUILT[0] += 1
+        return mesh
+
+    def _usable(self, entry: HotEntry) -> bool:
+        """Is a hot entry laid out as this executor folds its block? An
+        entry another executor left on the other device type, or sharded
+        for another mesh, counts as a miss and is replaced."""
+        mesh = _sharded_over(self.mesh, entry.meta.block_rows)
+        if entry.shards is not None:
+            return mesh is not None and entry.placement == mesh.placement
+        return mesh is None and all(t.device.type == self.device.type for t in entry.dev.values())
+
+    def _ship(self, enc: EncodedBatch) -> tuple[dict | list, int]:
+        """Ship a block on this query's streams: whole to the executor's
+        device, or row-sharded over the mesh's cards. Returns (the block,
+        bytes shipped) and notes whether the copy was a link sample."""
+        mesh = _sharded_over(self.mesh, enc.block_rows)
+        if mesh is None:
+            block, nbytes, self._sample_aux = _ship_block(enc, self.device)
+        else:
+            block, nbytes, self._sample_aux, _ = _ship_sharded(enc, mesh)
+        self._count("h2d_bytes", nbytes)
+        return block, nbytes
+
+    def _hot_entry(self, enc: EncodedBatch, block: dict | list, nbytes: int) -> HotEntry:
+        if isinstance(block, list):
+            return HotEntry(dev={}, meta=enc, nbytes=nbytes, shards=block,
+                            placement=self.mesh.placement)
+        return HotEntry(dev=block, meta=enc, nbytes=nbytes)
 
     def _encoded_block(
         self,
@@ -1289,11 +1545,7 @@ class GpuQueryExecutor(QueryExecutor):
             if pf is not None:
                 pf.claim(source)
             entry = hotset.get(key, touch=False)
-            if entry is not None and all(
-                t.device.type == self.device.type for t in entry.dev.values()
-            ):
-                # (an entry another executor left on the other device type
-                # counts as a miss and is replaced below)
+            if entry is not None and self._usable(entry):
                 check(entry.meta)
                 self._sample_aux = False
                 if pf is None or not pf.consumed(key):
@@ -1306,10 +1558,9 @@ class GpuQueryExecutor(QueryExecutor):
                 if enc is not None:
                     check(enc)
                     with self._stage("transfer"):
-                        dev, nbytes, self._sample_aux = _ship_block(enc, self.device)
-                    self._count("h2d_bytes", nbytes)
+                        dev, nbytes = self._ship(enc)
                     _strip_host_values(enc)
-                    hotset.put(key, HotEntry(dev=dev, meta=enc, nbytes=nbytes))
+                    hotset.put(key, self._hot_entry(enc, dev, nbytes))
                     return enc, dev, "device_cold"
         table = self._materialize(table)
         with self._stage("encode"):
@@ -1318,14 +1569,13 @@ class GpuQueryExecutor(QueryExecutor):
             raise UnsupportedOnDevice("unencodable column in batch")
         check(enc)
         with self._stage("transfer"):
-            dev, nbytes, self._sample_aux = _ship_block(enc, self.device)
-        self._count("h2d_bytes", nbytes)
+            dev, nbytes = self._ship(enc)
         if key is not None:
             if enccache is not None:
                 # snapshot-by-reference, then persist off the query path
                 enccache.put_async(source, enc)
             _strip_host_values(enc)
-            hotset.put(key, HotEntry(dev=dev, meta=enc, nbytes=nbytes))
+            hotset.put(key, self._hot_entry(enc, dev, nbytes))
         return enc, dev, "device_cold"
 
     def _attach(self, block: dict, aux: dict[str, np.ndarray]) -> dict:
@@ -1340,6 +1590,44 @@ class GpuQueryExecutor(QueryExecutor):
         self._count("h2d_aux_bytes", nbytes)
         dev.update(aux_dev)
         return dev
+
+    def _attach_mesh(
+        self, mesh: Mesh, block: dict | list, rows: int, aux: dict[str, np.ndarray],
+        row_aux: dict[str, np.ndarray] | None = None, window_progs: list | None = None,
+    ) -> list[dict]:
+        """Per mesh position, its view of a block: its row shard's tensors
+        (views of a whole block on a virtual mesh), the query's aux
+        (program, K5 LUTs) replicated to each card in ONE small copy a card
+        (JAX `put_rep`, :1929-1945), `row_aux` (pair mode's `__pairkey`)
+        row-sharded with the block, and on the 2D layout the program of the
+        position's groups window (`window_progs[g]`) as its `__prog`."""
+        row_aux = row_aux or {}
+        shard = rows // mesh.n_data
+        held = mesh.held()
+        if isinstance(block, dict):  # whole, on the virtual mesh's one device
+            shards = [{k: v[d * shard : (d + 1) * shard] for k, v in block.items()}
+                      for d in map(mesh.data_index, range(mesh.size))]
+        else:
+            shards = block
+        extra = {f"__prog{g}": w for g, w in enumerate(window_progs or ())}
+        sent: dict[torch.device, dict] = {}
+        for i, (device, shards_held) in enumerate(held.items()):
+            parts = list(aux.items()) + list(extra.items())
+            parts += [(k, _held_rows(a, shards_held, shard, mesh.n_data)) for k, a in row_aux.items()]
+            sent[device], nbytes = _copy(parts, device, self._sample_aux and i == 0)
+            self._count("h2d_bytes", nbytes)
+            self._count("h2d_aux_bytes", nbytes)
+        out = []
+        for p, device in enumerate(mesh.devices):
+            got = sent[device]
+            k = held[device].index(mesh.data_index(p))
+            view = dict(shards[p])
+            view.update((name, got[name]) for name in aux)
+            view.update((name, got[name][k * shard : (k + 1) * shard]) for name in row_aux)
+            if window_progs:
+                view["__prog"] = got[f"__prog{mesh.group_index(p)}"]
+            out.append(view)
+        return out
 
     # ----------------------------------------------------------------- select
 
@@ -1397,12 +1685,25 @@ class GpuQueryExecutor(QueryExecutor):
                     yield t.filter(_arr(evaluate(sel.where, t), t))
                     continue
                 prog = progs[-1]
+                mesh = self._fold_mesh_for(enc.block_rows)
                 with self._stage("transfer"):
-                    dev = self._attach(block, {"__prog": prog.pack()})
+                    if mesh is None:
+                        devs = [self._attach(block, {"__prog": prog.pack()})]
+                    else:
+                        devs = self._attach_mesh(mesh, block, enc.block_rows,
+                                                 {"__prog": prog.pack()})
+                        devs = [devs[p] for p in mesh.column(0)]
                 self._count(route, 1)
                 with self._stage("fold"):
-                    slots = [(dev[v] if v else None, dev[m] if m else None) for v, m in prog.slots]
-                    mask, _ = F.mask_ids(dev["__prog"], slots, enc.block_rows, with_ids=False)
+                    # under a mesh each data shard masks its own rows
+                    masks = []
+                    for dev in devs:
+                        slots = [(dev[v] if v else None, dev[m] if m else None)
+                                 for v, m in prog.slots]
+                        mask, _ = F.mask_ids(dev["__prog"], slots, enc.block_rows // len(devs),
+                                             with_ids=False)
+                        masks.append(mask.to(self.device, non_blocking=True))
+                    mask = masks[0] if len(masks) == 1 else torch.cat(masks)
                 with self._stage("finalize"):
                     keep = self._readback(mask, np.bool_)[: enc.num_rows]
                 yield self._materialize(table).filter(pa.array(keep))
@@ -1460,21 +1761,41 @@ class GpuQueryExecutor(QueryExecutor):
         needed = device_columns(self.plan.needed_columns, sel.where)
         bounds_ms = self._bounds_ms()
 
-        acc: torch.Tensor | None = None  # device-resident packed accumulator (R, G)
-        dacc: list[torch.Tensor] = []  # per distinct spec: flat [G * cap] f32
-        pacc: list[torch.Tensor] = []  # per percentile spec: flat [G * DEVICE_NB] f32
+        # device-resident packed accumulator (R, G); on a 2D mesh over several
+        # cards, a list of its groups windows, one on each column's first card
+        acc: torch.Tensor | list | None = None
+        dacc: list = []  # per distinct spec: flat [G * cap] f32 (or its windows)
+        pacc: list = []  # per percentile spec: flat [G * DEVICE_NB] f32 (or its windows)
         acc_groups = 0
+        shard_groups = 1  # groups windows of the epoch's accumulators
 
-        def new_acc(num_groups: int) -> torch.Tensor:
+        def heads() -> list[torch.device]:
+            # where each groups window lives: one tensor on the executor's
+            # device unless the columns' first cards differ
+            mesh = self.mesh
+            cols = [mesh.devices[mesh.column(g)[0]] for g in range(shard_groups)]
+            return cols if any(d != self.device for d in cols) else []
+
+        def new_acc(num_groups: int) -> torch.Tensor | list:
             """Packed accumulator rows (AccLayout): count | per-agg counts |
             sums (incl. stddev x and M2) | mins (incl. pct vmin) | maxs."""
-            a = torch.zeros((lay.n_rows, num_groups), dtype=torch.float32, device=self.device)
+            where = heads() if shard_groups > 1 else []
+            if where:
+                return [new_acc_on(num_groups // shard_groups, d) for d in where]
+            return new_acc_on(num_groups, self.device)
+
+        def new_acc_on(num_groups: int, device: torch.device) -> torch.Tensor:
+            a = torch.zeros((lay.n_rows, num_groups), dtype=torch.float32, device=device)
             lo = 1 + lay.n_allk + lay.n_sumk
             a[lo : lo + lay.n_mink] = groupby_cuda.F32_MAX
             a[lo + lay.n_mink :] = -groupby_cuda.F32_MAX
             return a
 
-        def new_flat(size: int) -> torch.Tensor:
+        def new_flat(size: int) -> torch.Tensor | list:
+            where = heads() if shard_groups > 1 else []
+            if where:
+                return [torch.zeros(size // shard_groups, dtype=torch.float32, device=d)
+                        for d in where]
             return torch.zeros(size, dtype=torch.float32, device=self.device)
 
         def flush() -> None:
@@ -1641,24 +1962,40 @@ class GpuQueryExecutor(QueryExecutor):
                         dk.capacity = c
                     layout.distinct_caps = dcaps
                     acc_groups = new_groups
+                    # the 2D layout shards the accumulators over the groups
+                    # axis where the group space divides; otherwise that
+                    # axis idles (JAX :2789-2797)
+                    m = _mesh_group_shards(self.mesh)
+                    shard_groups = m if m > 1 and acc_groups % m == 0 and acc_groups >= m else 1
                     acc = new_acc(acc_groups)
                     dacc = [new_flat(acc_groups * c) for c in dcaps]
                     pacc = [new_flat(acc_groups * DEVICE_NB) for _ in lay.pct_idx]
+                mesh = self._fold_mesh_for(enc.block_rows)
+                windows = shard_groups if mesh is not None else 1
                 with self._stage("encode"):
-                    self._finish_program(prog, enc, block, key_specs, remaps, layout, bounds_ms)
-                aux = {"__prog": prog.pack()}
-                aux.update({f"__dremap{i}": r for i, r in enumerate(dremaps)})
+                    self._finish_program(prog, enc, key_specs, remaps, layout, bounds_ms,
+                                         window=acc_groups // windows if windows > 1 else None)
+                aux = {f"__dremap{i}": r for i, r in enumerate(dremaps)}
+                words = prog.pack()
                 with self._stage("transfer"):
-                    dev = self._attach(block, aux)
+                    if mesh is None:
+                        devs = [self._attach(block, {"__prog": words, **aux})]
+                    elif windows > 1:
+                        gw = acc_groups // windows
+                        devs = self._attach_mesh(
+                            mesh, block, enc.block_rows, aux,
+                            window_progs=[F.window_at(words, g * gw) for g in range(windows)])
+                    else:
+                        devs = self._attach_mesh(mesh, block, enc.block_rows,
+                                                 {"__prog": words, **aux})
                 self._count(route, 1)
-                dev_dremaps = [
-                    dev[f"__dremap{i}"].view(2, -1) if sk else dev[f"__dremap{i}"]
-                    for i, sk in enumerate(dk_sketch)
-                ]
                 with self._stage("fold"):
-                    self._fold_one(
-                        acc, dacc, pacc, enc.block_rows, dev, prog, dev_dremaps, layout, acc_groups
-                    )
+                    if mesh is None:
+                        self._fold_whole(acc, dacc, pacc, enc.block_rows, devs[0], prog, dk_sketch,
+                                         layout, acc_groups)
+                    else:
+                        self._fold_mesh(mesh, acc, dacc, pacc, enc.block_rows, devs, prog,
+                                        dk_sketch, layout, acc_groups, windows)
             except UnsupportedOnDevice as e:
                 logger.debug("batch on CPU (%s)", e)
                 self.route_stats["cpu_fallback"] += 1
@@ -1727,19 +2064,21 @@ class GpuQueryExecutor(QueryExecutor):
         self,
         prog: Program,
         enc: EncodedBatch,
-        block: dict,
         key_specs: list[KeySpec],
         remaps: list[np.ndarray],
         layout: PlanLayout,
         bounds_ms: tuple[int | None, int | None],
         local: "LocalKeys | None" = None,
+        window: int | None = None,
     ) -> None:
         """The rest of a block's K3 program after its WHERE: the time
         bounds and the padding mask ANDed into the verdict, one key
         instruction per GROUP BY key (mixed radix by capacity) and the
         operand rows of `layout`. With `local`, the keys are the block's
         own: its codes (KEY_CODE) and bins from its first one, or the pair
-        codes `__pairkey` of pair mode."""
+        codes `__pairkey` of pair mode. With `window`, a KEY_WINDOW of that
+        many groups follows the keys (the 2D mesh layout; `F.window_at`
+        points it at each column's window)."""
         ts = enc.columns.get(DEFAULT_TIMESTAMP_KEY)
         if ts is not None and any(b is not None for b in bounds_ms):
             if ts.kind != "time":
@@ -1750,7 +2089,7 @@ class GpuQueryExecutor(QueryExecutor):
                     rel = max(-(2**31) + 2, min(2**31 - 2, b - enc.time_origin_ms))
                     prog.cmp_i32(_slot(prog, ts), op, rel)
                     prog.and_()
-        if "__rowmask" in block:
+        if enc.num_rows != enc.block_rows:  # the block ships its padding mask
             prog.is_null(prog.slot(None, "__rowmask"), negated=True)
             prog.and_()
         if local is not None and local.pairs is not None:
@@ -1771,7 +2110,53 @@ class GpuQueryExecutor(QueryExecutor):
                 else:
                     prog.key_code(slot, cap, stride)
                 stride *= cap
+        if window is not None:
+            prog.key_window(0, window)
         _emit_operands(prog, layout, enc)
+
+    def _block_pieces(self, rows: int, dev: dict, prog: Program, layout: PlanLayout,
+                      num_groups: int) -> tuple:
+        """One block's (or one mesh shard's) kernels: mask and group ids
+        (K3a), the operand rows (K3b), then A, K7 about the block's own
+        per-group means, which stay on the stream, and B. Returns (ids,
+        frows, brows, mask, adds, m2, mins, maxs): adds is A's count | per-
+        agg counts | sums, m2 None without stddev/var, mins and maxs None
+        without min/max state."""
+        words = dev["__prog"]
+        slots = [(dev[v] if v else None, dev[m] if m else None) for v, m in prog.slots]
+        mask, ids = F.mask_ids(words, slots, rows)
+        frows, brows = F.stack_operands(words, slots, mask, prog.n_frows, prog.n_brows)
+        o = OperandRows.of(layout)
+        adds = groupby_cuda.additive_groupby(ids, frows[: o.n_a], num_groups)
+        m2 = mins = maxs = None
+        if o.n_sq:
+            b_n, b_s = adds[1 + o.n_sum : 1 + o.n_sumk], adds[1 + o.n_all + o.n_sum :]
+            m2 = stats_cuda.centered_m2(
+                ids, frows[1 + o.n_all + o.n_sum : o.n_a], brows[o.n_b : o.n_b + o.n_sq], mask,
+                b_s / b_n.clamp_min(1.0),
+            )
+        if o.n_b:
+            mins, maxs = groupby_cuda.minmax_groupby(
+                ids, frows[o.n_a : o.n_a + o.n_b], brows[: o.n_b], mask, num_groups, o.n_mink
+            )
+        return ids, frows, brows, mask, adds, m2, mins, maxs
+
+    @staticmethod
+    def _merge_partial(acc: torch.Tensor, o: OperandRows, adds, m2, mins, maxs) -> None:
+        """Fold a block's partial into the accumulator IN PLACE: Chan's merge
+        of M2 with the PRE-block count and sum, then add, min and max."""
+        a0 = o.n_a  # first M2 row of the accumulator
+        if o.n_sq:
+            b_n, b_s = adds[1 + o.n_sum : 1 + o.n_sumk], adds[1 + o.n_all + o.n_sum :]
+            acc[a0 : a0 + o.n_sq] = _chan_merge_m2(
+                acc[1 + o.n_sum : 1 + o.n_sumk], acc[1 + o.n_all + o.n_sum : a0],
+                acc[a0 : a0 + o.n_sq], b_n, b_s, m2,
+            )
+        acc[:a0] += adds  # count | per-agg counts | sums
+        if o.n_b:
+            lo = a0 + o.n_sq
+            acc[lo : lo + o.n_mink] = torch.minimum(acc[lo : lo + o.n_mink], mins)
+            acc[lo + o.n_mink :] = torch.maximum(acc[lo + o.n_mink :], maxs)
 
     def _fold_one(
         self,
@@ -1790,35 +2175,10 @@ class GpuQueryExecutor(QueryExecutor):
         PLACE (add, min/max, Chan merge of M2, max for the distinct bitmaps
         and registers, add for the histograms); they are owned by this
         query alone."""
-        words = dev["__prog"]
-        slots = [(dev[v] if v else None, dev[m] if m else None) for v, m in prog.slots]
-        mask, ids = F.mask_ids(words, slots, rows)
-        frows, brows = F.stack_operands(words, slots, mask, prog.n_frows, prog.n_brows)
+        ids, frows, brows, _, adds, m2, mins, maxs = self._block_pieces(
+            rows, dev, prog, layout, num_groups)
         o = OperandRows.of(layout)
-        adds = groupby_cuda.additive_groupby(ids, frows[: o.n_a], num_groups)
-        a0 = o.n_a  # first M2 row of the accumulator
-        if o.n_sq:
-            # stddev/var: this block's centred moments (K7) about its own
-            # per-group means, which stay on the stream, then Chan's merge
-            # with the PRE-block count and sum, before the add below
-            pac, sums = adds[1 : 1 + o.n_all], adds[1 + o.n_all :]
-            b_n, b_s = pac[o.n_sum : o.n_sumk], sums[o.n_sum :]
-            m2 = stats_cuda.centered_m2(
-                ids, frows[1 + o.n_all + o.n_sum : o.n_a], brows[o.n_b : o.n_b + o.n_sq], mask,
-                b_s / b_n.clamp_min(1.0),
-            )
-            acc[a0 : a0 + o.n_sq] = _chan_merge_m2(
-                acc[1 + o.n_sum : 1 + o.n_sumk], acc[1 + o.n_all + o.n_sum : a0],
-                acc[a0 : a0 + o.n_sq], b_n, b_s, m2,
-            )
-        acc[:a0] += adds  # count | per-agg counts | sums
-        if o.n_b:
-            mins, maxs = groupby_cuda.minmax_groupby(
-                ids, frows[o.n_a : o.n_a + o.n_b], brows[: o.n_b], mask, num_groups, o.n_mink
-            )
-            lo = a0 + o.n_sq
-            acc[lo : lo + o.n_mink] = torch.minimum(acc[lo : lo + o.n_mink], mins)
-            acc[lo + o.n_mink :] = torch.maximum(acc[lo + o.n_mink :], maxs)
+        self._merge_partial(acc, o, adds, m2, mins, maxs)
         # count(distinct) presence / approx_distinct HLL ranks (K5)
         live = o.n_b + o.n_sq
         for i, (d, col, cap, lut) in enumerate(
@@ -1828,6 +2188,82 @@ class GpuQueryExecutor(QueryExecutor):
         # percentile histograms (K6; NaN values are dropped by the kernel)
         for j, h in enumerate(pacc):
             stats_cuda.pct_histogram(h, frows[o.n_a + o.n_min + j], ids, brows[o.n_min + j])
+
+    @staticmethod
+    def _dremaps(dev: dict, dk_sketch: tuple[bool, ...]) -> list:
+        return [dev[f"__dremap{i}"].view(2, -1) if sk else dev[f"__dremap{i}"]
+                for i, sk in enumerate(dk_sketch)]
+
+    def _fold_whole(self, acc, dacc: list, pacc: list, rows: int, dev: dict, prog: Program,
+                    dk_sketch: tuple[bool, ...], layout: PlanLayout, num_groups: int) -> None:
+        """A block on the executor's one device. Where the accumulators are
+        groups windows on several cards (a block whose rows do not split
+        over the mesh), they gather onto the device, fold, and scatter
+        back."""
+        dremaps = self._dremaps(dev, dk_sketch)
+        if not isinstance(acc, list):
+            self._fold_one(acc, dacc, pacc, rows, dev, prog, dremaps, layout, num_groups)
+            return
+        whole = [acc, *dacc, *pacc]
+        full = [torch.cat([w.to(self.device) for w in x], dim=-1) for x in whole]
+        self._fold_one(full[0], full[1 : 1 + len(dacc)], full[1 + len(dacc) :], rows, dev, prog,
+                       dremaps, layout, num_groups)
+        for x, f in zip(whole, full):
+            for w, part in zip(x, _windows(f, len(x))):
+                w.copy_(part)
+
+    def _fold_mesh(self, mesh: Mesh, acc, dacc: list, pacc: list, rows: int, devs: list[dict],
+                   prog: Program, dk_sketch: tuple[bool, ...], layout: PlanLayout,
+                   num_groups: int, windows: int) -> None:
+        """One block row-sharded over the mesh (JAX `fold_one` under
+        `shard_map`, :2852-3003, :3028-3060). In each groups column (one on
+        a 1D mesh), each data shard runs K3a, K3b, A, K7 (about the shard's
+        own means) and B into a partial of its own, and K5 and K6 into
+        fresh buffers; the partials are copied to the column's first device
+        and K10 combines them there (sum, Chan's M2, min, max; max for the
+        distinct state, sum for the histograms). The combined partial then
+        folds into the column's accumulator window as one device's block
+        does. On the 2D layout each column owns num_groups / windows groups,
+        and its shards' programs mask the rest off (KEY_WINDOW)."""
+        o = OperandRows.of(layout)
+        desc = _acc_desc(o)
+        gw = num_groups // windows
+        if windows > 1:
+            GROUP_SHARDED_PROGRAMS_BUILT[0] += 1
+        accw = _windows(acc, windows)
+        dw = [_windows(d, windows) for d in dacc]
+        pw = [_windows(h, windows) for h in pacc]
+        shard = rows // mesh.n_data
+        live = o.n_b + o.n_sq
+        a0, lo = o.n_a, o.n_a + o.n_sq
+        for g in range(windows):
+            positions = mesh.column(g)
+            head = mesh.devices[positions[0]]
+            partials: list[torch.Tensor] = []
+            dparts: list[list] = [[] for _ in dacc]
+            pparts: list[list] = [[] for _ in pacc]
+            for p in positions:
+                dev, device = devs[p], mesh.devices[p]
+                ids, frows, brows, _, *pieces = self._block_pieces(shard, dev, prog, layout, gw)
+                partials.append(torch.cat([x for x in pieces if x is not None]))
+                for i, (col, cap, lut) in enumerate(zip(
+                        layout.distinct_cols, layout.distinct_caps, self._dremaps(dev, dk_sketch))):
+                    fresh = torch.zeros(gw * cap, dtype=torch.float32, device=device)
+                    stats_cuda.distinct_fold(fresh, ids, dev[col], brows[live + i], cap, lut)
+                    dparts[i].append(fresh[None])
+                for j in range(len(pacc)):
+                    fresh = torch.zeros(gw * DEVICE_NB, dtype=torch.float32, device=device)
+                    stats_cuda.pct_histogram(fresh, frows[o.n_a + o.n_min + j], ids,
+                                             brows[o.n_min + j])
+                    pparts[j].append(fresh[None])
+            part = combine(partials, desc, head)
+            self._merge_partial(accw[g], o, part[:a0], part[a0:lo],
+                                part[lo : lo + o.n_mink], part[lo + o.n_mink :])
+            for i, parts in enumerate(dparts):
+                got = combine(parts, [(mesh_cuda.MAX, 0, 0)], head)[0]
+                torch.maximum(dw[i][g], got, out=dw[i][g])
+            for j, parts in enumerate(pparts):
+                pw[j][g] += combine(parts, [(mesh_cuda.SUM, 0, 0)], head)[0]
 
     # ------------------------------------------ high cardinality (block-local)
 
@@ -1898,14 +2334,28 @@ class GpuQueryExecutor(QueryExecutor):
                 aux["__pairkey"] = inv.reshape(-1).astype(np.int32)
         local = LocalKeys(tuple(caps), tuple(origins), num_groups, pairs)
         with self._stage("encode"):
-            self._finish_program(prog, enc, block, key_specs, [], layout, bounds_ms, local=local)
+            self._finish_program(prog, enc, key_specs, [], layout, bounds_ms, local=local)
         aux["__prog"] = prog.pack()
+        mesh = self._fold_mesh_for(enc.block_rows)
         with self._stage("transfer"):
-            dev = self._attach(block, aux)
+            if mesh is None:
+                dev = self._attach(block, aux)
+            else:
+                # pair codes shard with the rows; the program is replicated
+                row_aux = {k: aux.pop(k) for k in ("__pairkey",) if k in aux}
+                devs = self._attach_mesh(mesh, block, enc.block_rows, aux, row_aux)
         self._count(route, 1)
         self._count("device_local", 1)
         with self._stage("fold"):
-            acc = self._local_fold(enc.block_rows, dev, prog, layout, num_groups)
+            if mesh is None:
+                acc = self._local_fold(enc.block_rows, dev, prog, layout, num_groups)
+            else:
+                # each data shard into a fresh partial, combined by K10 (JAX
+                # :2533-2539); the groups axis, if any, idles
+                shard = enc.block_rows // mesh.n_data
+                acc = combine([self._local_fold(shard, devs[p], prog, layout, num_groups)
+                               for p in mesh.column(0)], _acc_desc(OperandRows.of(layout)),
+                              self.device)
         with self._stage("local"):
             return self._partial_from_arrays(self._readback(acc), lay, keyinfo, specs, pairs)
 
@@ -1917,24 +2367,9 @@ class GpuQueryExecutor(QueryExecutor):
         keys), operand rows (K3b), then A, K7 about the block's own means
         (no Chan merge: each block's M2 is its own partial) and B. Local
         mode holds no percentile or distinct state."""
-        words = dev["__prog"]
-        slots = [(dev[v] if v else None, dev[m] if m else None) for v, m in prog.slots]
-        mask, ids = F.mask_ids(words, slots, rows)
-        frows, brows = F.stack_operands(words, slots, mask, prog.n_frows, prog.n_brows)
-        o = OperandRows.of(layout)
-        adds = groupby_cuda.additive_groupby(ids, frows[: o.n_a], num_groups)
-        parts = [adds]  # count | per-agg counts | sums
-        if o.n_sq:
-            b_n, b_s = adds[1 + o.n_sum : 1 + o.n_sumk], adds[1 + o.n_all + o.n_sum :]
-            parts.append(stats_cuda.centered_m2(
-                ids, frows[1 + o.n_all + o.n_sum : o.n_a], brows[o.n_b : o.n_b + o.n_sq], mask,
-                b_s / b_n.clamp_min(1.0),
-            ))
-        if o.n_b:
-            parts.extend(groupby_cuda.minmax_groupby(
-                ids, frows[o.n_a : o.n_a + o.n_b], brows[: o.n_b], mask, num_groups, o.n_mink
-            ))
-        return torch.cat(parts) if len(parts) > 1 else adds
+        pieces = [x for x in self._block_pieces(rows, dev, prog, layout, num_groups)[4:]
+                  if x is not None]  # count | per-agg counts | sums, M2, mins, maxs
+        return torch.cat(pieces) if len(pieces) > 1 else pieces[0]
 
     def _host_codes(self, enc: EncodedBatch, block: dict, column: str) -> np.ndarray:
         """A column's encoded codes on the host: the encode-time array where
@@ -1945,6 +2380,9 @@ class GpuQueryExecutor(QueryExecutor):
             raise UnsupportedOnDevice(f"group key column {column} missing")
         if len(col.values):
             return col.values
+        if isinstance(block, list):  # row-sharded: the data shards in order
+            return np.concatenate([self._readback(block[p][column], np.int64)
+                                   for p in self.mesh.column(0)])
         return self._readback(block[column], np.int64)
 
     @staticmethod
@@ -2107,6 +2545,8 @@ class GpuQueryExecutor(QueryExecutor):
         `ops/topk_cuda.py`); reads back only the (R, k) gather and the k
         group ids. A kernel that fails raises: there is no fallback to the
         full readback."""
+        if isinstance(acc, list):  # groups windows on several cards: K8 sees every group
+            acc = torch.cat([w.to(self.device) for w in acc], dim=1)
         kind = specs[si].func
         val_row, pac_row, sq_row = topk_cuda.rows_for(lay, kind, si)
         gathered, idx = topk_cuda.topk_groups(acc, kind, val_row, pac_row, sq_row, desc, k)

@@ -981,3 +981,106 @@ def test_cuda_local_mode_matches_plain_path(cuda, sql, pairs, monkeypatch):
                 assert x[k] == pytest.approx(y[k], rel=2e-4, abs=1e-6)
             else:
                 assert x[k] == y[k], (k, x[k], y[k])
+
+
+# ----------------------------------------------------------- K10 mesh_combine
+
+
+def _mesh_parts(seed: int, d: int, w: int, hazards: bool) -> tuple[torch.Tensor, list]:
+    """[D, 7, W] partials of one accumulator layout (count | n | s | M2 |
+    min | max | a flat SUM row): shard 0 empty where D > 1, the last group
+    empty on every shard; with `hazards`, NaN, +-inf, +-3.4e38 and -0.0 in
+    the MIN/MAX rows."""
+    from parseable_tpu_torch.ops import mesh_cuda as MC
+
+    rng = np.random.default_rng(seed)
+    n = rng.integers(0, 100, (d, w)).astype(np.float32)
+    if d > 1:
+        n[0] = 0
+    n[:, -1] = 0
+    s = (rng.standard_normal((d, w)) * 10 + 5).astype(np.float32) * n
+    m2 = (rng.random((d, w)) * 50).astype(np.float32) * (n > 1)
+    mn = np.where(n > 0, rng.standard_normal((d, w)).astype(np.float32), np.float32(np.inf))
+    mx = np.where(n > 0, rng.standard_normal((d, w)).astype(np.float32) + 3, np.float32(-np.inf))
+    if hazards:
+        pool = np.array([np.nan, np.inf, -np.inf, 3.4e38, -3.4e38, -0.0, 0.0], np.float32)
+        for row in (mn, mx):
+            pick = rng.random((d, w)) < 0.05
+            row[pick] = rng.choice(pool, int(pick.sum()))
+    flat = rng.integers(0, 5, (d, w)).astype(np.float32)
+    parts = np.stack([n, n, s, m2, mn, mx, flat], axis=1)
+    desc = [(MC.SUM, 0, 0), (MC.SUM, 0, 0), (MC.SUM, 0, 0), (MC.M2, 1, 2), (MC.MIN, 0, 0),
+            (MC.MAX, 0, 0), (MC.SUM, 0, 0)]
+    return torch.from_numpy(parts), desc
+
+
+def _same_bits(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Equal bit for bit, a NaN matching any NaN."""
+    nan = torch.isnan(want)
+    return torch.equal(torch.isnan(got), nan) and torch.equal(
+        got.view(torch.int32)[~nan], want.view(torch.int32)[~nan])
+
+
+@pytest.mark.parametrize("d", [1, 2, 4, 8])
+@pytest.mark.parametrize("w", [1, 4099, 1 << 17])
+@pytest.mark.parametrize("hazards", [False, True], ids=["plain", "hazards"])
+def test_cuda_mesh_combine_exact(cuda, d, w, hazards):
+    """K10 bit for bit against its plain version on the card, over every op,
+    empty shards and groups, and NaN / +-inf / -0.0 in MIN and MAX rows."""
+    from parseable_tpu_torch.ops import mesh_cuda as MC
+
+    parts, desc = _mesh_parts(d * 31 + w, d, w, hazards)
+    parts = parts.to(cuda)
+    before = MC.LAUNCHES["mesh_combine"]
+    got = MC.mesh_combine(parts, desc)
+    torch.cuda.synchronize()
+    assert MC.LAUNCHES["mesh_combine"] == before + 1
+    assert _same_bits(got, MC.mesh_combine_plain(parts, desc))
+
+
+def test_cuda_mesh_combine_refuses_bad_inputs(cuda):
+    from parseable_tpu_torch.ops import mesh_cuda as MC
+
+    parts = torch.zeros((2, 3, 64), device=cuda)
+    with pytest.raises(G.KernelError):
+        MC.mesh_combine(parts[:, :, ::2], [(MC.SUM, 0, 0)] * 3)  # not contiguous
+    with pytest.raises(G.KernelError):
+        MC.mesh_combine(parts, [(MC.M2, 7, 0)] * 3)
+
+
+@pytest.mark.parametrize("shape", ["4", "2x2"])
+def test_cuda_virtual_mesh_matches_one_device(cuda, shape, monkeypatch):
+    """A virtual mesh on the one card (four shards on it, or 2 x 2 with a
+    groups-sharded accumulator): every block folds sharded through K10, and
+    the answers equal the one-device run's (counts and min/max exact, sums,
+    stddev within rel 2e-4: another order of f32 sums)."""
+    from parseable_tpu_torch.ops import mesh_cuda as MC
+    from parseable_tpu_torch.ops.hotset import get_hotset
+    from parseable_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d, pin_mesh
+    from parseable_tpu_torch.query.executor_cuda import SOURCE_ID_META, GpuQueryExecutor
+    from parseable_tpu_torch.query.planner import plan
+    from parseable_tpu_torch.query.sql import parse_sql
+
+    sql = ("SELECT status, count(*) AS c, sum(lat) AS s, min(lat) AS mn, max(lat) AS mx, "
+           "stddev(lat) AS sd, count(distinct host) AS h FROM t GROUP BY status")
+    tables = [_table(s, 1 << 16).replace_schema_metadata({SOURCE_ID_META: f"m{s}".encode()})
+              for s in (1, 2)]
+    monkeypatch.setenv("P_TPU_ENC_CACHE", "0")
+    monkeypatch.setenv("P_TPU_ADAPTIVE", "0")
+    get_hotset().clear()
+    one = GpuQueryExecutor(plan(parse_sql(sql)), device=cuda).execute(iter(tables)).to_pylist()
+    mesh = make_mesh(4, devices=[cuda] * 4) if shape == "4" else make_mesh_2d(2, 2, [cuda] * 4)
+    before = MC.LAUNCHES["mesh_combine"]
+    with pin_mesh(mesh):
+        ex = GpuQueryExecutor(plan(parse_sql(sql)), device=cuda)
+        got = ex.execute(iter(tables)).to_pylist()
+    assert ex.route_stats["device_mesh"] == 2 and ex.route_stats["cpu_fallback"] == 0
+    assert MC.LAUNCHES["mesh_combine"] > before
+    key = lambda r: str(r["status"])  # noqa: E731
+    for a, b in zip(sorted(got, key=key), sorted(one, key=key)):
+        for k in a:
+            if k in ("s", "sd"):
+                assert a[k] == pytest.approx(b[k], rel=2e-4, abs=1e-6)
+            else:
+                assert a[k] == b[k], (k, a[k], b[k])
+    get_hotset().clear()

@@ -166,7 +166,7 @@ def test_operand_rows_match_the_jax_stacks(blocks):
     layout = X.PlanLayout(key_specs=[], distinct_cols=["host"], **LAYOUT)
     prog = F.Program()
     X.PredicateCompiler().lower(where_of(text, port_parse), enc, prog)
-    ex._finish_program(prog, enc, dev, [], [], layout, (X.time_ticks(X.parse_rfc3339(lo), "ms", ">="), None))
+    ex._finish_program(prog, enc, [], [], layout, (X.time_ticks(X.parse_rfc3339(lo), "ms", ">="), None))
     words, slots, mask, _ = run(prog, dev, enc.block_rows)
     frows, brows = F.stack_operands(words, slots, mask, prog.n_frows, prog.n_brows)
 
