@@ -64,7 +64,18 @@ there in the regime their rule picks and in the whole-copy rule's (a whole
 copy a CTA), timed in turns, K7 also with a NaN and an inf value that must
 stay in their own groups. Phase 6 runs the HTTP server: every ingest
 request must take the native lane's columnar tier, and a parse line gives
-each tier's parse-only rate on the same bodies. Any failed check
+each tier's parse-only rate on the same bodies. Phase 13 (after phase 6)
+runs a cluster on one store: two ingest-mode servers as subprocesses
+(`P_MODE=ingest python -m parseable_tpu_torch.server`, a Flight port each)
+ack 2^20 events each, half moved into the lake by a stop and a start, half
+left in staging, and a query-mode server here on the card answers phase
+6's queries, a statistics query, a distinct-count query and select_filter
+three ways: pushed down over Flight, pushed down over HTTP, and central
+(the ingestors' staging windows pulled to the card). Every answer must
+equal a numpy oracle of the events sent; a pushed-down GROUP BY must reach
+both peers with no fallback and move no raw staging row; every central
+query keeps each block on the card, and the phase must launch K3a, K3b,
+A, B and K5-K7. Any failed check
 raises, so the script exits non-zero; it needs one CUDA card and has no
 CPU path.
 
@@ -2947,24 +2958,30 @@ def server_queries(torch, G, server, want: dict, where: str, profile_status: boo
                   f"{where} {qname}: K8 launches {delta['topk_groups']}")
         log(f"phase 6 {where} {qname}: == oracle == cpu engine, launches {delta}")
     if profile_status:
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            _, wall = http_query(server.port, SERVER_QUERIES["status"].format(stream=STREAM))
-            torch.cuda.synchronize()
-        busy_us = sum(
-            getattr(ev, "self_device_time_total", 0.0)
-            for ev in prof.key_averages()
-            if str(getattr(ev, "device_type", "")).endswith("CUDA")
-        )
-        if busy_us:
-            log(
-                f"phase 6 {where} status profile: HTTP wall {wall * 1e3:.3f} ms, device busy "
-                f"{busy_us / 1e3:.3f} ms, idle share {1 - busy_us / 1e3 / (wall * 1e3):.4f}"
-            )
-        else:
-            log(f"phase 6 {where} status profile: the profiler saw no device time (not measured)")
+        profile_idle(torch, server.port, "status", f"phase 6 {where}")
     return walls
+
+
+def profile_idle(torch, port: int, qname: str, what: str) -> None:
+    """One more run of a SERVER_QUERIES query over HTTP under torch.profiler:
+    its wall, the device's busy time and the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall = http_query(port, SERVER_QUERIES[qname].format(stream=STREAM))
+        torch.cuda.synchronize()
+    busy_us = sum(
+        getattr(ev, "self_device_time_total", 0.0)
+        for ev in prof.key_averages()
+        if str(getattr(ev, "device_type", "")).endswith("CUDA")
+    )
+    if busy_us:
+        log(
+            f"{what} {qname} profile: HTTP wall {wall * 1e3:.3f} ms, device busy "
+            f"{busy_us / 1e3:.3f} ms, idle share {1 - busy_us / 1e3 / (wall * 1e3):.4f}"
+        )
+    else:
+        log(f"{what} {qname} profile: the profiler saw no device time (not measured)")
 
 
 def boot_module(work: Path, acked: int) -> None:
@@ -3116,6 +3133,273 @@ def drive_server(torch, G, seed: int, device=None) -> dict:
         from parseable_tpu_torch.ops.link import get_link
 
         get_link().flush()  # now, not at exit into a deleted directory
+        shutil.rmtree(work, ignore_errors=True)
+
+
+# ---------------------------------------------------------- phase 13: cluster
+
+CLUSTER_INGESTORS = 2
+# what phase 13 asks the querier: phase 6's queries, a statistics query and
+# a select, plus count(distinct) and approx_distinct by status (K5): the
+# statistics query has no distinct aggregate, and the other one bins by
+# minute, which an oracle of the events sent cannot know
+CLUSTER_QUERIES = {
+    **SERVER_QUERIES,
+    "stats_status": STATS_QUERIES["stats_status"],
+    "stats_distinct": (
+        "SELECT status, count(distinct path) AS paths, approx_distinct(host) AS hosts "
+        "FROM {stream} GROUP BY status"
+    ),
+    "select_filter": SELECT_QUERIES["select_filter"][0],
+}
+PUSHED = ("status", "regex_filter", "topk_multicol")  # the partializable GROUP BYs
+# the querier's settings per run: whether it scatters, and over which tier
+CLUSTER_MODES = {
+    "pushdown, flight": {"query_pushdown": True, "flight_client": True},
+    "pushdown, http": {"query_pushdown": True, "flight_client": False},
+    "central": {"query_pushdown": False, "flight_client": True},
+}
+HLL_REL = 0.05  # approx_distinct against the exact count: 3 x 1.04 / sqrt(4096)
+
+
+def cluster_oracle(np, cols: dict) -> dict:
+    """`oracle` plus the answers of the statistics queries and the select
+    over the events sent, in numpy (f64)."""
+    out = oracle(np, cols)
+    status, lat, nbytes = cols["status"], cols["latency_ms"], cols["bytes"].astype(np.float64)
+    out["stats_status"], out["stats_distinct"] = {}, {}
+    for s in np.unique(status):
+        m = status == s
+        out["stats_status"][(float(s),)] = {
+            "c": int(m.sum()), "sd": float(lat[m].std(ddof=1)), "vb": float(nbytes[m].var(ddof=1)),
+            "p99": float(np.percentile(lat[m], 99)), "p50": float(np.median(nbytes[m])),
+        }
+        out["stats_distinct"][(float(s),)] = {
+            "paths": len(np.unique(cols["path"][m])), "hosts": len(np.unique(cols["host"][m])),
+        }
+    keep = (np.isin(cols["host"], ["10.0.0.1", "10.0.1.2"])
+            & (np.char.find(cols["path"].astype(str), "resource1") < 0) & (lat > 250))
+    out["select_filter"] = sorted(zip(cols["host"][keep].tolist(), cols["path"][keep].tolist(),
+                                      status[keep].tolist(), lat[keep].tolist()))
+    return out
+
+
+def check_cluster_answer(qname: str, records: list[dict], want: dict, where: str) -> None:
+    """Phase 6's oracle check, and for the other queries: counts and
+    distinct counts exact, stddev and var rel REL_TOL, percentiles rel 0.06,
+    approx_distinct rel HLL_REL; the select as a multiset."""
+    if qname in SERVER_QUERIES:
+        check_against_oracle(qname, records, want[qname], where)
+        return
+    if qname == "select_filter":
+        got = sorted((r["host"], r["path"], r["status"], r["latency_ms"]) for r in records)
+        check(len(got) == len(want[qname]),
+              f"{where} {qname}: {len(got)} rows, oracle {len(want[qname])}")
+        check(all(a[:3] == b[:3] and close(a[3], b[3]) for a, b in zip(got, want[qname])),
+              f"{where} {qname}: rows differ from the oracle")
+        return
+    rel = {**STATS_REL, "hosts": HLL_REL}
+    check(len(records) == len(want[qname]), f"{where} {qname}: {len(records)} groups")
+    for r in records:
+        key = (float(r["status"]),)
+        check(key in want[qname], f"{where} {qname}: group {key} not in the oracle")
+        for col, v in want[qname][key].items():
+            tol = rel.get(col)
+            ok = r[col] == v if tol is None else abs(r[col] - v) <= ABS_TOL + tol * abs(v)
+            check(ok, f"{where} {qname} {key}.{col}: {r[col]} vs oracle {v}")
+
+
+def check_cluster_query(qname: str, out: dict, settings: dict, want: dict, where: str) -> None:
+    """One phase 13 answer against the oracle, and its path: a pushed-down
+    GROUP BY reached every ingestor over the querier's tier with no
+    fallback and moved no raw staging row; any other query pulled the
+    staging windows and kept every block on the card."""
+    st = out["stats"]
+    fan = st["stages"]["fanout"]
+    check(st["scan_errors"] == 0, f"{where} {qname}: scan errors")
+    check_cluster_answer(qname, out["records"], want, where)
+    if settings["query_pushdown"] and qname in PUSHED:
+        tier = "flight" if settings["flight_client"] else "http"
+        check(fan["mode"] == "pushdown" and fan["ok"] == CLUSTER_INGESTORS
+              and fan["fallback"] == 0 and fan["fanin_bytes"] == 0
+              and fan["transport"] == {tier: CLUSTER_INGESTORS}, f"{where} {qname}: fanout {fan}")
+        return
+    routes = st["device_routes"]
+    check(fan["mode"] == "central" and fan["fanin_bytes"] > 0 and fan["fanin_errors"] == 0,
+          f"{where} {qname}: fanout {fan}")
+    if settings["flight_client"]:
+        check(fan["transport"].get("flight_peers") == CLUSTER_INGESTORS,
+              f"{where} {qname}: fan-in tiers {fan['transport']}")
+    check(routes["cpu_fallback"] == 0, f"{where} {qname}: routes {routes}")
+    check(routes["device_cold"] + routes["device_warm"] > 0,
+          f"{where} {qname}: no block on the device {routes}")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class Ingestor:
+    """`P_MODE=ingest python -m parseable_tpu_torch.server`: the normal entry
+    point, with its own staging dir, HTTP port and Flight port, on the
+    shared store. Its sync ticks are an hour apart: a stop (SIGTERM: flush,
+    convert, upload) is what moves its staging into the lake."""
+
+    def __init__(self, work: Path, i: int):
+        import os
+
+        self.log = work / f"ingestor-{i}.log"
+        self.port, self.flight_port = free_port(), free_port()
+        self.env = {**os.environ, "P_MODE": "ingest", "P_ADDR": f"127.0.0.1:{self.port}",
+                    "P_STAGING_DIR": str(work / f"staging-{i}"), "P_FS_DIR": str(work / "data"),
+                    "P_FLIGHT_PORT": str(self.flight_port), "P_LOCAL_SYNC_INTERVAL": "3600",
+                    "P_STORAGE_UPLOAD_INTERVAL": "3600"}
+        self.proc = None
+
+    def start(self) -> None:
+        with open(self.log, "ab") as out:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "parseable_tpu_torch.server"], cwd=ROOT, env=self.env,
+                stdout=out, stderr=subprocess.STDOUT,
+            )
+
+    def wait_live(self, t0: float) -> None:
+        import urllib.request
+
+        while time.perf_counter() - t0 < 180 and self.proc.poll() is None:
+            try:
+                url = f"http://127.0.0.1:{self.port}/api/v1/liveness"
+                with urllib.request.urlopen(url, timeout=5) as r:
+                    if r.status == 200:
+                        return
+            except OSError:
+                pass
+            time.sleep(0.25)
+        fail(f"ingestor on {self.port} never answered liveness (exit {self.proc.poll()}): "
+             f"{self.log.read_text()[-3000:]}")
+
+    def stop(self) -> int:
+        import signal
+
+        self.proc.send_signal(signal.SIGTERM)
+        code = self.proc.wait(timeout=300)
+        self.proc = None
+        return code
+
+    def kill(self) -> None:
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+
+
+def drive_cluster(torch, seed: int, n_events: int = N_EVENTS, device=None) -> dict:
+    """Phase 13: the cluster data plane. Two ingest-mode servers run as
+    subprocesses through the normal entry point, each with its own staging
+    dir and Flight port; one query-mode server runs here on the card; all
+    three share one LocalFS store. Each ingestor acks `n_events` events of
+    `make_events`' profile, half of them moved into the lake (a stop and a
+    start) before the other half arrives, which stays in staging. The
+    querier answers CLUSTER_QUERIES over HTTP, twice each, three ways
+    (CLUSTER_MODES): pushed down over Flight, pushed down over HTTP, and
+    central, the last with one more profiled status query for the device's
+    idle share (on the card). Returns the kernels' launch counts of the
+    phase. `device` as in `drive_main_path`."""
+    import numpy as np
+
+    from parseable_tpu_torch.config import Mode, Options, StorageOptions
+    from parseable_tpu_torch.server.app import start_server
+
+    work = ROOT / "build" / "smoke_cluster"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    on_card = device is None
+    ingestors = [Ingestor(work, i) for i in range(CLUSTER_INGESTORS)]
+    server = None
+    try:
+        t = time.perf_counter()
+        for ing in ingestors:
+            ing.start()
+        rng = np.random.default_rng(seed + 13)
+        per_node = [make_events(np, rng, n_events) for _ in ingestors]
+        cols = {k: np.concatenate([c[k] for c in per_node]) for k in per_node[0]}
+        want = cluster_oracle(np, cols)
+        bodies = [request_bodies(c, EVENTS_PER_REQUEST) for c in per_node]
+        for ing in ingestors:
+            ing.wait_live(t)
+        log(f"phase 13 ingestors: {CLUSTER_INGESTORS} live in {time.perf_counter() - t:.2f} s "
+            f"(ports {[(i.port, i.flight_port) for i in ingestors]})")
+        half = len(bodies[0]) // 2
+        acked = 0
+        for part in ("lake", "staging"):
+            for ing, bs in zip(ingestors, bodies):
+                some = bs[:half] if part == "lake" else bs[half:]
+                n, lat, wall = send_events(ing.port, some, CLIENTS)
+                acked += n
+                log(f"phase 13 ingest ({part}): {n} events acked by :{ing.port} in {wall:.3f} s "
+                    f"= {n / wall:.6g} rows/s, ack p99 "
+                    f"{np.percentile(np.array(lat) * 1e3, 99):.3f} ms")
+            if part == "lake":
+                t = time.perf_counter()
+                codes = [ing.stop() for ing in ingestors]
+                check(codes == [0] * len(ingestors), f"ingestors exited {codes} on stop")
+                stopped = time.perf_counter()
+                for ing in ingestors:
+                    ing.start()
+                for ing in ingestors:
+                    ing.wait_live(stopped)
+                log(f"phase 13 sync: stop (flush, convert, upload) {stopped - t:.3f} s, start "
+                    f"{time.perf_counter() - stopped:.3f} s")
+        check(acked == n_events * len(ingestors), f"{acked} events acked")
+        counts = kernel_counters()
+        reset_launches(counts)
+        walls: dict[str, dict] = {}
+        for mode, settings in CLUSTER_MODES.items():
+            opts = Options()
+            opts.mode = Mode.QUERY
+            opts.address = "127.0.0.1:0"
+            opts.local_staging_path = work / "staging-q"
+            opts.query_engine = "gpu"
+            opts.query_result_cache_bytes = 0
+            for k, v in settings.items():
+                setattr(opts, k, v)
+            server = start_server(opts, StorageOptions(root=work / "data"), device)
+            for qname, sql in CLUSTER_QUERIES.items():
+                before = launch_counts(counts)
+                for run in ("first", "again"):
+                    out, wall = http_query(server.port, sql.format(stream=STREAM))
+                    walls.setdefault(mode, {}).setdefault(qname, {})[run] = wall
+                    check_cluster_query(qname, out, settings, want, f"phase 13 {mode} {run}")
+                delta = {k: v - before[k] for k, v in launch_counts(counts).items()}
+                st = out["stats"]
+                log(f"phase 13 {mode} {qname}: == oracle, HTTP walls "
+                    f"{json.dumps(walls[mode][qname])} s, {st['rows_scanned']} rows scanned "
+                    f"({st['staging_rows']} from staging), stages {json.dumps(st['stages'])}, "
+                    f"launches {delta}")
+            if on_card and not settings["query_pushdown"]:
+                profile_idle(torch, server.port, "status", f"phase 13 {mode}")
+            server.stop()
+            server = None
+        launches = launch_counts(counts)
+        log(f"phase 13 launches on the querier's central path: {launches}")
+        log("phase 13 HTTP query wall s: " + json.dumps(walls))
+        if on_card:
+            for name in ("mask_ids", "stack_operands", "additive_groupby", "minmax_groupby",
+                         "distinct_fold", "pct_histogram", "centered_m2"):
+                check(launches[name] > 0, f"{name} was never launched in phase 13")
+        t = time.perf_counter()
+        codes = [ing.stop() for ing in ingestors]
+        check(codes == [0] * len(ingestors), f"ingestors exited {codes} on stop")
+        log(f"phase 13 stop: ingestors drained and exited 0 in {time.perf_counter() - t:.3f} s")
+        return launches
+    finally:
+        if server is not None:
+            server.stop()
+        for ing in ingestors:
+            ing.kill()
         shutil.rmtree(work, ignore_errors=True)
 
 
@@ -3321,6 +3605,10 @@ def main() -> int:
     server_launches = drive_server(torch, G, args.seed)
     phase_done("6 server")
 
+    # -- phase 13: the cluster data plane, two ingestors and a querier
+    cluster_launches = drive_cluster(torch, args.seed)
+    phase_done("13 cluster")
+
     # -- phase 5: each kernel at the shapes the main path gave it, on one
     # block's real inputs (and kernels A and B on uniform inputs of the same
     # shape)
@@ -3346,7 +3634,8 @@ def main() -> int:
         **dict.fromkeys(K3_KERNELS, "parseable_tpu_torch/csrc/fold.cu"),
     }
     by_phase = {"lake": launches, "stats": stats_launches, "server": server_launches,
-                "pressure": pressure_launches, "highcard": hc_launches, "mesh": mesh_launches}
+                "pressure": pressure_launches, "highcard": hc_launches, "mesh": mesh_launches,
+                "cluster": cluster_launches}
 
     def phase_launches(name: str) -> dict:
         # each phase's own count of the kernel's launches

@@ -3,8 +3,10 @@
 Counterpart of `parseable_tpu/config.py`, trimmed to the fields the port
 reads. Field names, environment variables and defaults follow the JAX
 package, except `query_engine`, whose default is "gpu": entry points run on
-the card unless the caller asks for the CPU. The port runs in the JAX
-package's `all` mode only (one node ingests and answers queries).
+the card unless the caller asks for the CPU. A node runs in one of the JAX
+package's modes (`P_MODE`): `all` ingests and answers queries, `ingest`
+ingests and serves its slice to queriers, `query` answers queries over
+every live ingestor (`server/cluster.py`, `query/fanout.py`).
 """
 
 from __future__ import annotations
@@ -46,6 +48,17 @@ def env_int(name: str, default: int) -> int:
     return _env_int(name, default)
 
 
+class Mode(str, Enum):
+    """Server modes (reference: src/option.rs Mode enum, main.rs:54-70)."""
+
+    ALL = "all"
+    INGEST = "ingest"
+    QUERY = "query"
+
+    def to_str(self) -> str:
+        return {Mode.ALL: "All", Mode.INGEST: "Ingest", Mode.QUERY: "Query"}[self]
+
+
 class Compression(str, Enum):
     """Parquet compression (default lz4_raw, as in the JAX package)."""
 
@@ -68,6 +81,18 @@ class Options:
 
     # --- server ---------------------------------------------------------------
     address: str = field(default_factory=lambda: _env("P_ADDR", "0.0.0.0:8000"))
+    # advertised endpoints: behind NAT or a load balancer the bind address
+    # is not what peers dial (`Parseable.register_node`)
+    ingestor_endpoint: str = field(default_factory=lambda: _env("P_INGESTOR_ENDPOINT", ""))
+    querier_endpoint: str = field(default_factory=lambda: _env("P_QUERIER_ENDPOINT", ""))
+    # Arrow Flight data plane (`server/flight.py`): an ingest-capable node
+    # serves the staging fan-in and the partial pushdown on this port when
+    # > 0; HTTP + Arrow IPC on the main port stays the fallback tier
+    flight_port: int = field(default_factory=lambda: _env_int("P_FLIGHT_PORT", 0))
+    # client side: 0 pins intra-cluster fetches to HTTP even where peers
+    # advertise Flight
+    flight_client: bool = field(default_factory=lambda: _env_bool("P_FLIGHT_CLIENT", True))
+    mode: Mode = field(default_factory=lambda: Mode(_env("P_MODE", "all").lower()))
     username: str = field(default_factory=lambda: _env("P_USERNAME", "admin"))
     password: str = field(default_factory=lambda: _env("P_PASSWORD", "admin"))
 
@@ -120,6 +145,23 @@ class Options:
         default_factory=lambda: _env_int("P_QUERY_RESULT_CACHE_BYTES", 64 * 1024 * 1024)
     )
 
+    # --- distributed query fan-out (query/fanout.py, server/cluster.py) -----
+    # a query node scatters partializable GROUP BY aggregates to the live
+    # ingestors (each answers one partial over its own slice) instead of
+    # pulling their raw staging windows; 0 keeps every query central
+    query_pushdown: bool = field(default_factory=lambda: _env_bool("P_QUERY_PUSHDOWN", True))
+    # per-peer pushdown timeout; a timed-out peer gets ONE retry, then its
+    # slice is served centrally
+    fanout_timeout_ms: int = field(default_factory=lambda: _env_int("P_FANOUT_TIMEOUT_MS", 10_000))
+    # a duplicate request goes to a peer whose first attempt is still
+    # outstanding after this long (first answer wins); 0 disables hedging
+    fanout_hedge_ms: int = field(default_factory=lambda: _env_int("P_FANOUT_HEDGE_MS", 1500))
+    # pushdown requests in flight at once; further peers go out as earlier
+    # ones resolve
+    fanout_max_inflight: int = field(
+        default_factory=lambda: _env_int("P_FANOUT_MAX_INFLIGHT", 8)
+    )
+
     # --- ingest ---------------------------------------------------------------
     max_event_payload_bytes: int = field(
         default_factory=lambda: _env_int("P_MAX_EVENT_PAYLOAD_SIZE", 10 * 1024 * 1024)
@@ -142,6 +184,11 @@ class Options:
     sync_workers: int = field(
         default_factory=lambda: _env_int("P_SYNC_WORKERS", min(8, os.cpu_count() or 1))
     )
+
+    def get_scheme(self) -> str:
+        """URL scheme peers dial this node with. The port serves plain HTTP
+        (TLS is a later slice)."""
+        return "http"
 
     def staging_dir(self) -> Path:
         self.local_staging_path.mkdir(parents=True, exist_ok=True)
@@ -169,6 +216,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp = sub.add_parser("local-store")
     sp.add_argument("--fs-dir", default=None, help="root dir for local-store")
     p.add_argument("--address", default=None)
+    p.add_argument("--mode", default=None, choices=[m.value for m in Mode])
     p.add_argument("--staging-dir", default=None)
     p.add_argument("--query-engine", default=None, choices=["gpu", "cpu"])
     return p
@@ -179,6 +227,8 @@ def parse_cli(argv: list[str] | None = None) -> tuple[Options, StorageOptions]:
     opts = Options()
     if args.address:
         opts.address = args.address
+    if args.mode:
+        opts.mode = Mode(args.mode)
     if args.staging_dir:
         opts.local_staging_path = Path(args.staging_dir)
     if args.query_engine:

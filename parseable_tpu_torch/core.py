@@ -1,9 +1,12 @@
 """Core service state: options + storage + metastore + stream registry.
 
-Counterpart of `parseable_tpu/core.py` (`Parseable`), for one node in the
-JAX package's `all` mode (it writes the base `.stream.json`). It owns the
-staging -> parquet -> object store -> catalog pipeline, as the JAX package
-does:
+Counterpart of `parseable_tpu/core.py` (`Parseable`), for one node in any
+of the JAX package's modes (`Options.mode`): an `all` or `query` node writes
+the base `.stream.json`, an `ingest` node its own
+`ingestor.<node_id>.stream.json`, registers itself in the node registry
+(`register_node`) and stamps its id after the hostname in the parquet it
+stages (`owner_tag`). It owns the staging -> parquet -> object store ->
+catalog pipeline, as the JAX package does:
 
 - stream creation, bootstrap from storage and schema commit;
 - `local_sync` (flush + compaction on the sync pool) and its pipelined
@@ -14,8 +17,8 @@ does:
 
 Each uploaded Parquet file goes to the enrichment queue after its snapshot
 commit (`storage/enrichment.py`), which seeds the encoded-block cache off
-the commit path; sync ticks and `shutdown` drain it. The upload pool,
-remote backends and distributed (per-ingestor) snapshots are later slices.
+the commit path; sync ticks and `shutdown` drain it. The upload pool and remote
+backends are later slices.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import json
 import logging
 import re
 import threading
+import urllib.parse
 from concurrent.futures import ThreadPoolExecutor
 from datetime import UTC, datetime, timedelta
 from pathlib import Path
@@ -35,14 +39,15 @@ from parseable_tpu_torch import DEFAULT_TIMESTAMP_KEY
 from parseable_tpu_torch.catalog import (
     Manifest,
     ManifestItem,
+    Snapshot,
     create_from_parquet_file,
     partition_path,
 )
-from parseable_tpu_torch.config import Options, StorageOptions, generate_node_id
+from parseable_tpu_torch.config import Mode, Options, StorageOptions, generate_node_id
 from parseable_tpu_torch.event.format import LogSource, SchemaVersion
 from parseable_tpu_torch.metastore import MetastoreError, ObjectStoreMetastore
 from parseable_tpu_torch.query.partials import invalidate_result_cache
-from parseable_tpu_torch.storage import ObjectStoreFormat, rfc3339_now
+from parseable_tpu_torch.storage import FullStats, ObjectStoreFormat, rfc3339_now
 from parseable_tpu_torch.storage.enrichment import EnrichmentQueue
 from parseable_tpu_torch.storage.object_storage import LocalFS
 from parseable_tpu_torch.streams import _HOSTNAME, LogStreamMetadata, Stream, Streams
@@ -89,7 +94,7 @@ class Parseable:
         self.storage = LocalFS(self.storage_options.root)
         self.metastore = ObjectStoreMetastore(self.storage)
         self.node_id = self._load_or_create_node_id()
-        self.streams = Streams(self.options)
+        self.streams = Streams(self.options, self._node_suffix)
         # shared write-path pool: arrow-group compaction jobs across streams
         # and per-stream upload ticks (P_SYNC_WORKERS)
         self.sync_pool = ThreadPoolExecutor(
@@ -112,11 +117,49 @@ class Parseable:
         path.write_text(json.dumps({"node_id": node_id, "created_at": rfc3339_now()}))
         return node_id
 
+    def register_node(self, address: str) -> None:
+        """Publish this node in the registry (`.parseable/<type>.<id>.json`)
+        with the endpoint peers dial, its owner tag and, when this node
+        serves the Flight data plane, its `flight_url`. Queriers find
+        ingestors here; an entry without `flight_url` keeps peers on HTTP."""
+        node_type = {Mode.INGEST: "ingestor", Mode.QUERY: "querier"}.get(self.options.mode, "all")
+        if node_type == "ingestor" and self.options.ingestor_endpoint:
+            address = self.options.ingestor_endpoint
+        elif node_type in ("querier", "all") and self.options.querier_endpoint:
+            address = self.options.querier_endpoint
+        domain = (
+            address
+            if address.startswith(("http://", "https://"))
+            else f"{self.options.get_scheme()}://{address}"
+        )
+        node = {
+            "node_id": self.node_id,
+            "node_type": node_type,
+            "domain_name": domain,
+            "mode": self.options.mode.to_str(),
+            # lets queriers split the manifest set by owner before the
+            # pushdown scatter
+            "owner_tag": self.owner_tag,
+            "registered_at": rfc3339_now(),
+        }
+        if self.options.flight_port > 0:
+            host = urllib.parse.urlsplit(domain).hostname or "127.0.0.1"
+            node["flight_url"] = f"grpc://{host}:{self.options.flight_port}"
+        self.metastore.put_node(node)
+
+    @property
+    def _node_suffix(self) -> str | None:
+        """Ingestors write per-node stream jsons; all/query write the base."""
+        return self.node_id if self.options.mode == Mode.INGEST else None
+
     @property
     def owner_tag(self) -> str:
-        """Basename prefix of the parquet this node stages (`<hostname>.`):
-        snapshot totals count the manifest files this node owns."""
-        return _HOSTNAME + "."
+        """Basename prefix of the parquet this node stages
+        (`<hostname><ingestor_id>.`, the id on ingest nodes only). Snapshot
+        totals count the manifest files this node owns, a pushed-down
+        partial scans only them, and a querier skips the files of the peers
+        it scatters to: one predicate for all three."""
+        return _HOSTNAME + (self._node_suffix or "") + "."
 
     # --------------------------------------------------------------- streams
 
@@ -141,6 +184,15 @@ class Parseable:
             schema = self.metastore.get_schema(name)
             if schema is not None:
                 meta.schema = {f.name: f for f in schema}
+            if self._node_suffix is not None:
+                # each ingestor owns a per-node stream json for its snapshot
+                try:
+                    self.metastore.get_stream_json(name, self._node_suffix)
+                except MetastoreError:
+                    base = ObjectStoreFormat.from_json(fmts[0].to_json())
+                    base.snapshot = Snapshot()
+                    base.stats = FullStats()
+                    self.metastore.put_stream_json(name, base, self._node_suffix)
         if meta is None:
             meta = LogStreamMetadata(
                 time_partition=time_partition,
@@ -158,7 +210,7 @@ class Parseable:
                 log_source=[{"log_source_format": log_source.value, "fields": []}],
                 telemetry_type=telemetry_type,
             )
-            self.metastore.put_stream_json(name, fmt)
+            self.metastore.put_stream_json(name, fmt, self._node_suffix)
         return self.streams.get_or_create(name, meta)
 
     @staticmethod
@@ -338,11 +390,13 @@ class Parseable:
     def update_snapshot(self, stream: Stream, entries: list) -> None:
         """Append manifest entries and refresh the stream snapshot.
 
+        The snapshot is this node's stream json (per node on an ingestor).
         Item totals are recomputed from the files this node owns in each
-        manifest (staged filenames embed the hostname), so a replayed upload
-        of the same file_path leaves them unchanged."""
+        manifest (staged filenames embed the owner tag), so a replayed
+        upload of the same file_path leaves them unchanged, and ingestors
+        sharing a minute's manifest each count only their own files."""
         try:
-            fmt = self.metastore.get_stream_json(stream.name)
+            fmt = self.metastore.get_stream_json(stream.name, self._node_suffix)
         except MetastoreError:
             fmt = ObjectStoreFormat(created_at=stream.metadata.created_at or rfc3339_now())
 
@@ -390,7 +444,7 @@ class Parseable:
 
         if fmt.first_event_at is None and stream.metadata.first_event_at:
             fmt.first_event_at = stream.metadata.first_event_at
-        self.metastore.put_stream_json(stream.name, fmt)
+        self.metastore.put_stream_json(stream.name, fmt, self._node_suffix)
         # the committed snapshot supersedes every cached aggregate interim of
         # this stream (their manifest-set fingerprints are now stale)
         invalidate_result_cache(stream.name)

@@ -1,13 +1,15 @@
 """Metastore: stream metadata, schemas and manifests as JSON on the store.
 
 Counterpart of `parseable_tpu/metastore/__init__.py` (`ObjectStoreMetastore`),
-limited to what the query slice reads and writes: stream JSON, the merged
-schema, and manifests. Object keys and JSON match the JAX package, so each
-package reads the other's lake:
+limited to what the port reads and writes: stream JSON, the merged schema,
+manifests and the node registry. Object keys and JSON match the JAX
+package, so each package reads the other's lake and registry:
 
-    <stream>/.stream/*.stream.json      stream metadata (per node)
-    <stream>/.stream/.schema            merged arrow schema
-    <prefix>/manifest.json              manifests
+    <stream>/.stream/.stream.json               stream metadata (all/query)
+    <stream>/.stream/ingestor.<id>.stream.json  an ingestor's own snapshot
+    <stream>/.stream/.schema                    merged arrow schema
+    <prefix>/manifest.json                      manifests
+    .parseable/<type>.<node_id>.json            registered nodes
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import pyarrow as pa
 from parseable_tpu_torch.catalog import Manifest
 from parseable_tpu_torch.storage import (
     MANIFEST_FILE,
+    PARSEABLE_ROOT_DIRECTORY,
     STREAM_ROOT_DIRECTORY,
     ObjectStoreFormat,
     schema_path,
@@ -149,3 +152,24 @@ class ObjectStoreMetastore:
 
     def put_manifest(self, prefix: str, manifest: Manifest) -> None:
         self._put_json(f"{prefix}/{MANIFEST_FILE}", manifest.to_json())
+
+    # -- nodes --------------------------------------------------------------
+    def list_nodes(self, node_type: str | None = None) -> list[dict]:
+        """Registered nodes, of one type ("ingestor", "querier", "all") or
+        of every type."""
+        out = []
+        for meta in self.storage.list_prefix(PARSEABLE_ROOT_DIRECTORY):
+            if meta.key.endswith(".json"):
+                obj = self._get_json(meta.key)
+                if obj is not None and (node_type is None or obj.get("node_type") == node_type):
+                    out.append(obj)
+        return out
+
+    def put_node(self, node: dict) -> None:
+        node_type = node.get("node_type", "ingestor")
+        self._put_json(f"{PARSEABLE_ROOT_DIRECTORY}/{node_type}.{node['node_id']}.json", node)
+
+    def delete_node(self, node_id: str) -> None:
+        for meta in list(self.storage.list_prefix(PARSEABLE_ROOT_DIRECTORY)):
+            if node_id in meta.key:
+                self.storage.delete_object(meta.key)

@@ -866,6 +866,11 @@ class QueryExecutor:
     # HAVING, projection, ORDER BY and LIMIT run. Every aggregate path of
     # both engines ends in finalize_from_interim, so one hook covers them
     interim_sink = None
+    # the distributed pushdown's hook (query/fanout.py): called once the
+    # local scan's blocks have all reduced, it returns the peers' partial
+    # tables to fold into the same merge, so the peers' work overlaps the
+    # local scan instead of preceding it
+    partials_source = None
     # the caller's options, whose staging dir roots the process-wide link
     # profile; None leaves it where it is (the GPU executor sets its own)
     _staging_options = None
@@ -1064,6 +1069,10 @@ class QueryExecutor:
                 if pt is not None:
                     parts.append(pt)
                 link.record_cpu_agg(rows_scanned, time.perf_counter() - t0)
+            if self.partials_source is not None:
+                # the peers' combined partials join the local blocks in ONE
+                # merge (the same funnel: avg and stddev stay exact)
+                parts.extend(self.partials_source())
             if parts:
                 interim = PT.merge_partials(parts, agg.specs, len(sel.group_by))
                 return self.finalize_from_interim(interim, rewritten)
@@ -1074,6 +1083,25 @@ class QueryExecutor:
             mask = self._where_mask(table)
             agg.update(table, mask)
         return self.finalize_aggregate(agg, rewritten, group_names)
+
+    def partial_tables(self, tables: Iterator[pa.Table]) -> list[pa.Table]:
+        """Scan -> per-block partial tables, with no merge or finalize: the
+        peer half of the distributed pushdown (`combine_partials` folds the
+        blocks into one wire-ready partial). The bounds filter and WHERE
+        mask are those of `_execute_aggregate`'s two-phase loop."""
+        agg, _rewritten, _names = self.build_aggregator()
+        sel = self.plan.select
+        parts: list[pa.Table] = []
+        for table in tables:
+            self._check_deadline()
+            table = self._bounds_filter(table)
+            mask = self._where_mask(table)
+            if mask is not None:
+                table = table.filter(mask)
+            pt = PT.partial_from_block(table, sel.group_by, agg.specs)
+            if pt is not None:
+                parts.append(pt)
+        return parts
 
     def finalize_aggregate(
         self, agg: HashAggregator, rewritten: list[S.SelectItem], group_names: list[str]

@@ -20,8 +20,9 @@ key types it cannot encode) takes the multi-column group_by.
 
 The session's partial-result cache (`PartialResultCache`, JAX :61-179)
 keeps merged interims keyed on (stream, manifest-set fingerprint, plan
-fingerprint). Not ported here: the cluster fan-out's `combine_partials`
-(a later item of ROADMAP list 1).
+fingerprint). `combine_partials` folds one node's partials into a single
+partial table that stays mergeable: the distributed pushdown's wire shape
+(`query/fanout.py`).
 """
 
 from __future__ import annotations
@@ -440,10 +441,42 @@ def _merge_out(g: pa.Table, specs: list) -> dict[str, Any]:
     return cols
 
 
+def _combine_out(g: pa.Table, specs: list) -> dict[str, Any]:
+    """Re-emit the merged group table in PARTIAL format (`__cnt`/`__pac`/
+    `__sum`/`__sumsq`/`__min`/`__max`) instead of finalized `__agg` slots:
+    a per-node reduction that stays mergeable. A finalized avg or stddev
+    cannot be merged again across nodes (an avg of avgs weights nodes, not
+    rows), so the pushdown ships this shape and the querier's
+    `merge_partials` takes each peer's table as one more block."""
+    cols: dict[str, Any] = {"__cnt": g.column("__cnt_sum")}
+    for si, spec in enumerate(specs):
+        if spec.func == "count_star":
+            continue
+        cols[f"__pac{si}"] = g.column(f"__pac{si}_sum")
+        if spec.func in ("sum", "avg"):
+            cols[f"__sum{si}"] = g.column(f"__sum{si}_sum")
+        elif spec.func in ("stddev", "var"):
+            cols[f"__sum{si}"] = g.column(f"__sum{si}_sum")
+            cols[f"__sumsq{si}"] = g.column(f"__sumsq{si}_sum")
+        elif spec.func == "min":
+            cols[f"__min{si}"] = g.column(f"__min{si}_min")
+        elif spec.func == "max":
+            cols[f"__max{si}"] = g.column(f"__max{si}_max")
+    return cols
+
+
 def merge_partials(partials: list[pa.Table], specs: list, nkeys: int) -> pa.Table:
     """Final half: merge partial tables -> interim (__g/__agg) table for
     finalize_from_interim."""
     return _merge_partial_tables(partials, specs, nkeys, _merge_out)
+
+
+def combine_partials(partials: list[pa.Table], specs: list, nkeys: int) -> pa.Table:
+    """Node-local reduction for the distributed pushdown: merge this node's
+    per-block partials into ONE partial-format table (the columns of
+    `partial_from_block`) that the querier merges again. avg, stddev and
+    var stay exact: the carried state is (count, sum[, sumsq])."""
+    return _merge_partial_tables(partials, specs, nkeys, _combine_out)
 
 
 def _merge_partial_tables(partials: list[pa.Table], specs: list, nkeys: int, out_fn) -> pa.Table:

@@ -8,7 +8,9 @@ Counterpart of `parseable_tpu/query/provider.py` (`StreamScan`, :487):
   range; they carry no source id, so the GPU engine merges them into blocks
   of device size. They are taken under the stream lock together with the
   manifest list, so a row moving from staging into the lake during the
-  query is counted once;
+  query is counted once. On a query-mode node the window also holds every
+  live ingestor's staging window, pulled over the cluster data plane
+  (`server/cluster.py fetch_staging_batches`) after that manifest read;
 - the lake: snapshot -> manifests overlapping the time range -> per-file
   time and column-stats pruning (`prune_file`) -> Parquet read from the
   object store. Lake tables yield unfiltered, stamped with a source id; the
@@ -19,9 +21,13 @@ hot set holds, or the encoded-block cache can serve, is not read: the scan
 yields a zero-column stub (`query/stubs.py`) before any Parquet
 read, publishes those sources in manifest order (`prefetchable`) for the
 executor's prefetcher, and re-reads a source on demand (`read_source`).
-The hot tier on disk, the cluster fan-in and the shared scan scheduler are
-later slices; a small in-order read-ahead overlaps Parquet decode with the
-engine.
+`file_filter` scopes the lake to manifest files by basename for the
+distributed pushdown (`query/fanout.py`): a peer keeps its own files, the
+querier skips the files of the peers it scatters to, and the fallback scan
+keeps only a failed peer's; `local_staging` and `fetch_remote_staging`
+switch the two halves of the staging window. The hot tier on disk and the
+shared scan scheduler are later slices; a small in-order read-ahead
+overlaps Parquet decode with the engine.
 """
 
 from __future__ import annotations
@@ -31,15 +37,16 @@ import logging
 import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from datetime import UTC, datetime, timedelta
-from typing import Iterator
+from typing import Callable, Iterator
 
 import pyarrow as pa
 import pyarrow.parquet as pq
 
 from parseable_tpu_torch import DEFAULT_TIMESTAMP_KEY, LOCAL_SYNC_INTERVAL
 from parseable_tpu_torch.catalog import ManifestFile, Snapshot
+from parseable_tpu_torch.config import Mode
 from parseable_tpu_torch.core import Parseable
 from parseable_tpu_torch.ops.enccache import get_enccache
 from parseable_tpu_torch.ops.hotset import get_hotset
@@ -52,6 +59,7 @@ from parseable_tpu_torch.query.stubs import (
     hot_key,
     make_stub,
 )
+from parseable_tpu_torch.utils.arrowutil import adapt_batch, merge_schemas
 
 logger = logging.getLogger(__name__)
 
@@ -71,17 +79,38 @@ class ScanStats:
     # files dropped from the result set by read/decode failures — nonzero
     # means the response is PARTIAL
     scan_errors: int = 0
+    # manifest files left to a peer by `file_filter` (not pruned)
+    files_delegated: int = 0
+    # the peers' staging windows pulled over the cluster data plane: wire
+    # bytes, failed peers, and the bytes and peers per transport tier
+    fanin_bytes: int = 0
+    fanin_errors: int = 0
+    fanin_transport: dict = field(default_factory=dict)
 
 
 class StreamScan:
     """Materialize a stream's Parquet sources for one query."""
 
-    def __init__(self, parseable: Parseable, plan: LogicalPlan, use_hot_stubs: bool = False):
+    def __init__(
+        self,
+        parseable: Parseable,
+        plan: LogicalPlan,
+        use_hot_stubs: bool = False,
+        file_filter: Callable[[str], bool] | None = None,
+        local_staging: bool = True,
+        fetch_remote_staging: bool = True,
+    ):
         self.p = parseable
         self.plan = plan
         # device-resident or enccache-servable blocks skip the Parquet read
         # entirely: the scan yields a stub the GPU executor resolves
         self.use_hot_stubs = use_hot_stubs
+        # predicate over a manifest file's basename; files it rejects count
+        # as files_delegated
+        self.file_filter = file_filter
+        # this node's staging window, and (query mode) the peers' windows
+        self.local_staging = local_staging
+        self.fetch_remote_staging = fetch_remote_staging
         self._sources: dict[bytes, ManifestFile] = {}
         # ordered source ids the scan stubbed: the GPU executor's prefetcher
         # walks this list to ship block i+1 while block i aggregates.
@@ -137,7 +166,7 @@ class StreamScan:
         items = snapshot.manifests_for_range(self.plan.time_bounds.low, self.plan.time_bounds.high)
         files: list[ManifestFile] = []
         seen: set[str] = set()
-        pruned = 0
+        pruned = delegated = 0
         for item in items:
             prefix = item.manifest_path[: -len("/manifest.json")]
             manifest = self.p.metastore.get_manifest(prefix)
@@ -147,12 +176,19 @@ class StreamScan:
                 if f.file_path in seen:
                     continue
                 seen.add(f.file_path)
+                if self.file_filter is not None and not self.file_filter(
+                    f.file_path.rsplit("/", 1)[-1]
+                ):
+                    delegated += 1
+                    continue
                 if not self._file_overlaps_time(f) or not prune_file(f, self.plan.constraints):
                     pruned += 1
                     continue
                 files.append(f)
-        self.stats.files_total = len(seen)
-        self.stats.files_pruned = pruned
+        with self._stats_lock:
+            self.stats.files_total = len(seen)
+            self.stats.files_pruned = pruned
+            self.stats.files_delegated = delegated
         return files
 
     def _file_overlaps_time(self, f: ManifestFile) -> bool:
@@ -195,49 +231,104 @@ class StreamScan:
         return table.replace_schema_metadata(meta)
 
     def staging_tables(self) -> Iterator[pa.Table]:
-        """Staging-window data: this node's unconverted arrows, then its
-        staged parquet (an upload unlinks it in the step that commits it).
+        """Staging-window data: this node's unconverted arrows and its
+        staged parquet (an upload unlinks it in the step that commits it),
+        and on a query-mode node the live ingestors' windows.
 
-        The arrows window and the staged parquet are opened, and the
-        manifest list is (re)read, under the stream lock: conversions and
-        upload commits move files under that lock too, so each row is seen
-        in exactly one of arrows, staged parquet or the manifest. Decoding
-        happens after the lock is released (open files stay readable when a
-        sync unlinks them)."""
+        The local window is opened, and the manifest list (re)read, under
+        the stream lock: conversions and upload commits move files under
+        that lock too, so each local row is seen in exactly one of arrows,
+        staged parquet or the manifest. A staged file whose object is
+        already in the manifest is skipped. Decoding happens after the lock
+        is released (open files stay readable when a sync unlinks them).
+
+        The peers' windows are pulled after that manifest read. A peer
+        serves arrows and unclaimed staged parquet, and an unclaimed file
+        is not committed, so no peer row is counted twice; a file a peer
+        claims for upload, or commits, between the two reads is in neither
+        and its rows are missing from this one answer (ROADMAP §3)."""
         stream = self.p.streams.get(self.plan.stream)
         if stream is None:
             return
+        batches: list[pa.RecordBatch] = []
         staged: list[tuple[str, pq.ParquetFile]] = []
         try:
             with stream.lock:
-                batches = stream.staging_batches()
-                for f in stream.parquet_files():
-                    staged.append((f.name, pq.ParquetFile(f)))
+                if self.local_staging:
+                    batches = stream.staging_batches()
+                    for f in stream.parquet_files():
+                        staged.append((f, pq.ParquetFile(f)))
                 self._manifest_files = self._manifest_files_uncached()
+            if self.p.options.mode == Mode.QUERY and self.fetch_remote_staging:
+                remote = self._fetch_remote_staging()
+                if remote is not None:
+                    yield remote
             if batches:
                 table = pa.Table.from_batches(batches)
                 cols = self._columns_for_read(table.column_names)
                 if cols is not None:
                     table = table.select(cols)
-                with self._stats_lock:
-                    self.stats.rows_scanned += table.num_rows
-                    self.stats.staging_rows += table.num_rows
+                self._count_staging(table.num_rows)
                 yield table
-            for name, pf in staged:
+            committed = (
+                {m.file_path.rsplit("/", 1)[-1] for m in self._manifest_files} if staged else set()
+            )
+            for f, pf in staged:
+                if stream.stream_relative_path(f).rsplit("/", 1)[-1] in committed:
+                    continue
                 try:
                     t = pf.read(columns=self._columns_for_read(pf.schema_arrow.names))
                 except Exception:
-                    logger.exception("failed reading staged parquet %s", name)
+                    logger.exception("failed reading staged parquet %s", f.name)
                     with self._stats_lock:
                         self.stats.scan_errors += 1
                     continue
-                with self._stats_lock:
-                    self.stats.rows_scanned += t.num_rows
-                    self.stats.staging_rows += t.num_rows
+                self._count_staging(t.num_rows)
                 yield t
         finally:
             for _, pf in staged:
                 pf.close()
+
+    def _count_staging(self, rows: int) -> None:
+        with self._stats_lock:
+            self.stats.rows_scanned += rows
+            self.stats.staging_rows += rows
+
+    def _fetch_remote_staging(self) -> pa.Table | None:
+        """Every live ingestor's staging window, bounded by the plan's time
+        range and projected to its columns by the peer before it ships
+        (reference: airplane.rs:155-184), as one table."""
+        from parseable_tpu_torch.server.cluster import fetch_staging_batches
+
+        fanin: dict = {}
+        remote = fetch_staging_batches(
+            self.p,
+            self.plan.stream,
+            time_bounds=self.plan.time_bounds,
+            columns=self.plan.needed_columns,
+            stats=fanin,
+        )
+        self.add_fanin(fanin)
+        if not remote:
+            return None
+        schema = merge_schemas([b.schema for b in remote])
+        table = pa.Table.from_batches([adapt_batch(schema, b) for b in remote])
+        cols = self._columns_for_read(table.column_names)
+        if cols is not None:
+            table = table.select(cols)
+        self._count_staging(table.num_rows)
+        return table
+
+    def add_fanin(self, fanin: dict) -> None:
+        """Fold one fetch's fan-in counters into the scan's stats."""
+        with self._stats_lock:
+            self.stats.fanin_bytes += fanin.get("bytes", 0)
+            self.stats.fanin_errors += fanin.get("errors", 0)
+            for k in ("http_bytes", "flight_bytes", "flight_peers", "flight_fallbacks"):
+                if fanin.get(k):
+                    self.stats.fanin_transport[k] = (
+                        self.stats.fanin_transport.get(k, 0) + fanin[k]
+                    )
 
     def _apply_time_filter(self, table: pa.Table) -> pa.Table:
         tb = self.plan.time_bounds

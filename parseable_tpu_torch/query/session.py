@@ -12,6 +12,15 @@ trimmed to single-stream SELECTs. Engines:
   device hot set after the query.
 - "cpu": the pyarrow `QueryExecutor`.
 
+On a query-mode node (`Options.mode`) a partializable GROUP BY aggregate
+is pushed down to the live ingestors (`query/fanout.py`): each answers a
+partial over its own slice, and the merge runs on the CPU engine whatever
+the session engine, as in the JAX package. Every other query (selects,
+aggregates without GROUP BY, percentiles and distinct counts, and every
+query with `P_QUERY_PUSHDOWN=0`) runs the central path on the session
+engine, over the ingestors' staging windows pulled by the scan and the
+lake. `stats.stages.fanout` reports either.
+
 Both engines share the partial-result cache (`query/partials.py`,
 `P_QUERY_RESULT_CACHE_BYTES`): an aggregate whose time range ends before
 the staging window, over an unchanged manifest set, is answered from its
@@ -33,6 +42,7 @@ import pyarrow as pa
 import torch
 
 from parseable_tpu_torch import DEFAULT_TIMESTAMP_KEY
+from parseable_tpu_torch.config import Mode
 from parseable_tpu_torch.core import Parseable
 from parseable_tpu_torch.ops.hotset import get_hotset
 from parseable_tpu_torch.query import sql as S
@@ -101,6 +111,10 @@ class QuerySession:
         if self.engine not in ENGINES:
             raise QueryError(f"unknown engine {self.engine!r}; expected one of {ENGINES}")
         self.device = device
+        # the statement text the pushdown ships to peers (they plan it
+        # again), and the scatter-gather's stats of the last query
+        self._exec_sql: str | None = None
+        self._fanout_stats: dict | None = None
 
     def resolve_stream(self, name: str) -> None:
         """Make sure the stream exists locally, loading it from storage when
@@ -129,7 +143,10 @@ class QuerySession:
         # GPU aggregates skip the Parquet read of blocks the device hot set
         # or the encoded-block cache holds
         scan = StreamScan(self.p, lp, use_hot_stubs=self.engine == "gpu" and lp.is_aggregate)
+        self._exec_sql = sql_text
+        self._fanout_stats = None
         table, stats = self._execute(lp, scan)
+        stats["stages"]["fanout"] = self._fanout_stage(scan)
         elapsed = _time.monotonic() - t0
         stats.update(
             {
@@ -194,7 +211,26 @@ class QuerySession:
                     "result_cache": "hit",
                 }
                 return table, {"stages": stages}
-        if self.engine == "gpu":
+        # the distributed pushdown (query/fanout.py): prepare() scatters a
+        # partializable GROUP BY to the live ingestors and re-scopes the
+        # scan to the lake files none of them owns; None keeps it central
+        dist = None
+        opts = self.p.options
+        if (
+            opts.mode == Mode.QUERY
+            and opts.query_pushdown
+            and lp.is_aggregate
+            and self._exec_sql is not None
+        ):
+            from parseable_tpu_torch.query import fanout as FO
+
+            dist = FO.prepare(self.p, lp, scan, self._exec_sql)
+        if dist is not None:
+            # the peers' partials fold into the CPU engine's two-phase merge
+            # whatever the session engine, as in the JAX package
+            executor = QueryExecutor(lp)
+            executor.partials_source = dist.collect
+        elif self.engine == "gpu":
             from parseable_tpu_torch.query.executor_cuda import GpuQueryExecutor
 
             if (
@@ -230,6 +266,8 @@ class QuerySession:
         t0 = _time.perf_counter()
         table = executor.execute(timer)
         exec_ms = (_time.perf_counter() - t0) * 1000
+        if dist is not None:
+            self._fanout_stats = dist.stats
         stages = {
             "scan_ms": round(timer.seconds * 1000, 3),
             "execute_ms": round(max(exec_ms - timer.seconds * 1000, 0.0), 3),
@@ -242,6 +280,32 @@ class QuerySession:
             stages.update({f"{k}_ms": round(v, 3) for k, v in executor.stage_ms.items()})
             stages["hotset"] = self._hotset_stage(routes)
         return table, stats
+
+    def _fanout_stage(self, scan: StreamScan) -> dict | None:
+        """stats.stages.fanout: the pushdown's scatter-gather stats where it
+        ran, else the central path's staging fan-in (None on a node that is
+        not a querier and fetched nothing)."""
+        with scan._stats_lock:
+            fanin = {
+                "fanin_bytes": scan.stats.fanin_bytes,
+                "fanin_errors": scan.stats.fanin_errors,
+            }
+            delegated = scan.stats.files_delegated
+            transport = dict(scan.stats.fanin_transport)
+        if self._fanout_stats is not None:
+            snap = dict(self._fanout_stats)
+            snap.update(fanin)
+            snap["files_delegated"] = delegated
+            # the fallback fan-in's tiers; the scatter's own are "transport"
+            if transport:
+                snap["fanin_transport"] = transport
+            return snap
+        if self.p.options.mode != Mode.QUERY and not any(fanin.values()):
+            return None
+        out = {"mode": "central", **fanin}
+        if transport:
+            out["transport"] = transport
+        return out
 
     @staticmethod
     def _hotset_stage(routes: dict) -> dict:

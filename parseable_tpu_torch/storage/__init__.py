@@ -18,6 +18,8 @@ from parseable_tpu_torch.catalog import Snapshot
 
 STREAM_METADATA_FILE_NAME = ".stream.json"
 STREAM_ROOT_DIRECTORY = ".stream"
+# the node registry: `<type>.<node_id>.json` per node (reference: modal/mod.rs)
+PARSEABLE_ROOT_DIRECTORY = ".parseable"
 SCHEMA_FILE_NAME = ".schema"
 MANIFEST_FILE = "manifest.json"
 

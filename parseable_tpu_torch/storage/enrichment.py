@@ -6,7 +6,8 @@ ported yet). Each uploaded Parquet file is decoded once more, encoded to
 the device encoding (`ops/device.encode_table`, every column) and written
 to the encoded-block cache under its scan source id (`path|size|rows`), so
 the first query over the lake after an upload, or after a restart, reads
-no Parquet and encodes nothing.
+no Parquet and encodes nothing. An ingest-mode node answers no query on the
+card and seeds nothing.
 
 One low-priority worker does this entirely off the commit path: upload
 completion and snapshot commits never wait on it. The queue is bounded
@@ -30,6 +31,8 @@ import shutil
 import threading
 from dataclasses import dataclass
 from pathlib import Path
+
+from parseable_tpu_torch.config import Mode
 
 logger = logging.getLogger(__name__)
 
@@ -55,9 +58,9 @@ class EnrichmentQueue:
         self._guard = threading.Lock()
 
     def _wants_seed(self) -> bool:
-        # the port runs one node in the JAX package's `all` mode (never
-        # `ingest`), so the seed follows the query engine alone
-        return self._p.options.query_engine == "gpu"
+        # an ingest node answers no query on the card, so it seeds nothing
+        opts = self._p.options
+        return opts.mode != Mode.INGEST and opts.query_engine == "gpu"
 
     # -- producer side ------------------------------------------------------
 

@@ -14,7 +14,10 @@ src/parseable/streams.rs, src/metadata.rs):
 
 Staged Parquet is named
 `date=D.hour=HH.minute=MM.{custom...}.{host}.{uid}.data.parquet` and uploads
-to `<stream>/date=D/hour=HH/minute=MM/{custom.../}{host}.{uid}.data.parquet`.
+to `<stream>/date=D/hour=HH/minute=MM/{custom.../}{host}.{uid}.data.parquet`,
+where `{host}` is the hostname, followed on an ingest-mode node by its
+ingestor id: the basename prefix `{host}.` is the node's owner tag
+(`Parseable.owner_tag`).
 
 Every move of a stream's rows from one place to the next (open writer ->
 `.arrows` -> staged `.parquet` -> lake) becomes visible under `Stream.lock`
@@ -77,10 +80,19 @@ class LogStreamMetadata:
 class Stream:
     """One log stream's staging state: writers, files, metadata."""
 
-    def __init__(self, name: str, options: Options, metadata: LogStreamMetadata | None = None):
+    def __init__(
+        self,
+        name: str,
+        options: Options,
+        metadata: LogStreamMetadata | None = None,
+        ingestor_id: str | None = None,
+    ):
         self.name = name
         self.options = options
         self.metadata = metadata or LogStreamMetadata()
+        # an ingest-mode node's id, stamped after the hostname in every
+        # staged file name, so each node's files carry its owner tag
+        self.ingestor_id = ingestor_id
         self.data_path = options.staging_dir() / name
         self.writer = Writer(  # guarded-by: self.lock
             enable_memory=options.enable_memory_staging,
@@ -92,8 +104,15 @@ class Stream:
         # same arrows twice or upload the same parquet twice
         self._claimed_arrows: set[Path] = set()  # guarded-by: self.lock
         self._claimed_parquet: set[Path] = set()  # guarded-by: self.lock
-        # decoded staging window, keyed on the write-once .arrows file set
+        # decoded staging window, keyed on the write-once .arrows file set,
+        # and the decoded staged parquet of the staging fan-in, per file
         self._staging_cache: tuple | None = None  # guarded-by: self.lock
+        self._staged_pq_cache: dict = {}  # guarded-by: self.lock
+
+    @property
+    def hostname(self) -> str:
+        """The node part of staged file names: hostname + ingestor id."""
+        return _HOSTNAME + (self.ingestor_id or "")
 
     # --- filenames ---------------------------------------------------------
 
@@ -111,7 +130,7 @@ class Stream:
         slot = minute_slot(parsed_timestamp.minute, OBJECT_STORE_DATA_GRANULARITY)
         return (
             f"{schema_key}.date={parsed_timestamp.date()}"
-            f".hour={parsed_timestamp.hour:02d}.minute={slot}.{custom}{_HOSTNAME}"
+            f".hour={parsed_timestamp.hour:02d}.minute={slot}.{custom}{self.hostname}"
             f".data.{PART_FILE_EXTENSION}"
         )
 
@@ -153,6 +172,48 @@ class Stream:
             for p in self.data_path.iterdir()
             if p.suffix == ".parquet" and not p.name.endswith(".part.parquet")
         )
+
+    def unclaimed_parquet_files(self) -> list[Path]:
+        """Staged parquet no upload cycle has claimed: provably not yet
+        committed to the manifest (a claim is released only after the
+        commit and unlink, or after a failure that leaves the file
+        uncommitted), so the staging fan-in can serve these rows without
+        counting a committed file twice."""
+        files = self.parquet_files()
+        with self.lock:
+            return [f for f in files if f not in self._claimed_parquet]
+
+    def unclaimed_parquet_batches(self) -> list[pa.RecordBatch]:
+        """Decoded batches of every unclaimed staged parquet, cached per
+        file: staged parquet is written once and deleted after its upload
+        commit, never rewritten, so repeated fan-in pulls skip the read.
+        Files claimed or deleted since the last call drop out of the cache.
+        The caller that needs one consistent cut with `staging_batches`
+        holds `lock` around both."""
+        files = self.unclaimed_parquet_files()
+        out: list[pa.RecordBatch] = []
+        fresh: dict[Path, tuple] = {}
+        for f in files:
+            key = self._fileset_key([f])
+            with self.lock:
+                hit = self._staged_pq_cache.get(f)
+            if key is not None and hit is not None and hit[0] == key:
+                fresh[f] = hit
+                out.extend(hit[1])
+                continue
+            try:
+                batches = pq.read_table(f).to_batches()
+            except FileNotFoundError:
+                continue
+            except Exception:
+                logger.exception("staging fan-in: unreadable staged parquet %s", f)
+                continue
+            if key is not None:
+                fresh[f] = (key, batches)
+            out.extend(batches)
+        with self.lock:
+            self._staged_pq_cache = fresh
+        return out
 
     @staticmethod
     def _fileset_key(files: list[Path]) -> tuple | None:
@@ -316,7 +377,7 @@ class Stream:
         slot = minute_slot(parsed_timestamp.minute, OBJECT_STORE_DATA_GRANULARITY)
         group_key = (
             f"date={parsed_timestamp.date()}.hour={parsed_timestamp.hour:02d}"
-            f".minute={slot}.{_HOSTNAME}"
+            f".minute={slot}.{self.hostname}"
         )
         return self._stage_table(table, group_key)
 
@@ -389,8 +450,9 @@ class Stream:
 class Streams:
     """Registry of streams by name (reference: streams.rs:1561-1643)."""
 
-    def __init__(self, options: Options):
+    def __init__(self, options: Options, ingestor_id: str | None = None):
         self.options = options
+        self.ingestor_id = ingestor_id
         self._streams: dict[str, Stream] = {}  # guarded-by: self._lock
         self._lock = threading.RLock()
 
@@ -402,7 +464,7 @@ class Streams:
         with self._lock:
             s = self._streams.get(name)
             if s is None:
-                s = Stream(name, self.options, metadata)
+                s = Stream(name, self.options, metadata, self.ingestor_id)
                 s.recover_orphans()
                 self._streams[name] = s
             elif metadata is not None:

@@ -137,7 +137,8 @@ def test_jax_package_reads_the_lake_the_port_wrote(tmp_path):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Importing the whole port (every module, the server, ingest, event,
-    staging, native-lane and block-tier modules named too) loads no JAX."""
+    staging, native-lane, block-tier and cluster modules named too) loads
+    no JAX."""
     code = (
         "import pkgutil, sys, parseable_tpu_torch\n"
         "for m in pkgutil.walk_packages(parseable_tpu_torch.__path__, 'parseable_tpu_torch.'):\n"
@@ -151,6 +152,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import parseable_tpu_torch.ops.link, parseable_tpu_torch.ops.prefetch\n"
         "import parseable_tpu_torch.storage.enrichment, parseable_tpu_torch.query.stubs\n"
         "import parseable_tpu_torch.native\n"
+        "import parseable_tpu_torch.query.fanout, parseable_tpu_torch.server.cluster\n"
+        "import parseable_tpu_torch.server.flight\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
         "             or n == 'parseable_tpu' or n.startswith('parseable_tpu.'))\n"
         "print(bad)\n"
